@@ -108,7 +108,22 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
     lane 2 cut from tick 20 to 60;
 41. CRAQ and BPaxos card against CPU, 120 ticks, every State leaf equal;
 42. the chain and execute kernels' rows (the execute kernel on the BPaxos
-    runs' own inputs) and the two tick splits.
+    runs' own inputs) and the two tick splits;
+43. the six-pass grid vote (the race baseline of the fused one) held
+    against its plain passes, pass by pass and composed, and its ten
+    outputs against the fused kernel's, with a tolerance of zero, at
+    (R, C, NR, G, W) = (2, 2, 3, 25000, 32), (2, 3, 2, 7, 16),
+    (3, 2, 3, 64, 64) and (2, 2, 3, 512, 2048);
+44. its time at the main shape (CUDA events, the profiler's device time,
+    six kernel launches a call), its plain passes' time, and its bound:
+    the bytes each pass reads and writes, summed;
+45. the port's microbench (``harness/microbench.py``) at its default
+    sizes: every kernel against its plain version, the whole-tick kernel
+    against the planes it replaces, the fused grid vote against its six
+    passes, and the execute kernel and its plain version against the host
+    pointer walk; its JSON lines are printed, and any kernel or race whose
+    outputs differ fails the run. Its run is the six-pass kernel's main
+    path: its launch count goes into the kernels line.
 
 Both new kernels are held against their plain versions in phase 3 too:
 the chain kernel at five shapes on four inputs and three partitions, the
@@ -1519,6 +1534,219 @@ def craq_dg_kernel_rows(ctx, launches: dict, max_err: dict, cd: dict) -> list:
     return rows
 
 
+# -- The six-pass grid vote (#6) and the port's microbench -------------------
+
+UF_PLANE = "compartmentalized_unfused_grid_vote"
+# (R, C, NR, G, W) at which the six-pass kernel is held against its plain
+# passes and the fused kernel: the main shape, two ragged shapes, and the
+# general replica pass (W > 1024).
+UF_SHAPES = (CZ_MAIN, (2, 3, 2, 7, 16), (3, 2, 3, 64, 64), (2, 2, 3, 512, 2048))
+# The six kernels of one call, by name in the profiler, mangled or not
+# (the replica pass is uf_replica_any for W > 1024).
+UF_KERNEL_RE = r"uf_(age|vote|counts|choose|replica|retry)"
+
+
+def grid_vote_needed(czo, args, st, shape) -> tuple:
+    """The bytes the grid vote's inputs need, from the plain passes'
+    values on these inputs: ``(fused, passes)``, the fused kernel's and
+    each of the six passes' (by pass name). Every byte counts once, except
+    those a kernel reads only where it is used, as the kernels in
+    csrc/compartmentalized.cu do: p2b_del at voting cells and p2b_lat
+    where the vote is delivered; retry_del at the cells of timed-out
+    slots and retry_lat where they re-send; rep_lat at newly chosen
+    slots. The six passes also skip the choose pass's reads of a row
+    after its first vote and of alive_of_pos where the slot is not
+    PROPOSED with every row voted, and the retry pass's read of
+    alive_of_pos where the slot is not PROPOSED and due."""
+    R, C, NR, G, W = shape
+    plain = czo.reference_unfused_passes(*args, **st)
+    slot = dict(zip(czo.GRID_VOTE_IN_SLOTS, args))
+    for name, (_, written) in czo.UNFUSED_PASS_IO.items():
+        slot.update(zip(written, plain[name]))
+    moved = {
+        name: nbytes([slot[k] for k in reads + written])
+        for name, (reads, written) in czo.UNFUSED_PASS_IO.items()
+    }
+    cells, slots, rep_cells = R * C * G * W, G * W, NR * G * W
+    voted = int(slot["o_votes"].sum())
+    delivered = voted - int(slot["o_dropped"].sum())
+    timed = slot["o_timed"]
+    timed_cells = int(timed.sum()) * R * C
+    resent = int((timed[None, None] & slot["retry_del"]).sum())
+    armed = int(slot["o_newly"].sum()) * NR
+    # The choose pass reads a row's cells up to its first vote.
+    hit = (slot["o_p2b"] <= 0).to(torch.int32)
+    p2b_read = int(((hit.cumsum(1) - hit) == 0).sum())
+    proposed = slot["status"] == czo.PROPOSED
+    quorum = hit.amax(1).bool().all(0)
+    o_proposed = slot["o_status"] == czo.PROPOSED
+    due = o_proposed & ((args[14] - slot["ls"]) >= st["retry_timeout"])
+    vote_skip = (cells - voted) + (cells - delivered) * 4
+    retry_skip = (cells - timed_cells) + (cells - resent) * 4
+    rep_skip = (rep_cells - armed) * 4
+    passes = dict(moved)
+    passes["vote"] -= vote_skip
+    passes["counts"] -= cells - voted
+    passes["choose"] -= (cells - p2b_read) * 2 + slots - int((proposed & quorum).sum())
+    passes["replica"] -= rep_skip
+    passes["retry"] -= retry_skip + slots - int(due.sum())
+    fused_moved = nbytes(args) + nbytes(czo.reference_grid_vote(*args, **st))
+    return fused_moved - (vote_skip + retry_skip + rep_skip), passes
+
+
+def check_unfused(ctx) -> int:
+    """Hold the six-pass kernel against its plain passes, pass by pass and
+    composed, and its ten outputs against the fused kernel's, at
+    UF_SHAPES, with a tolerance of zero. Returns the largest difference
+    (0)."""
+    registry, czo = ctx["registry"], ctx["czo"]
+    st = dict(retry_timeout=16)
+    worst = 0
+    for shape in UF_SHAPES:
+        rng = np.random.default_rng(sum(shape))
+        args = registry.to_torch(czo.example_grid_vote_args(rng, *shape), "cuda")
+        launch, _, passes = czo.prepared_unfused_launch(*args, **st)
+        launch()
+        torch.cuda.synchronize()
+        plain = czo.reference_unfused_passes(*args, **st)
+        for name in czo.UNFUSED_PASSES:
+            worst = max(worst, outputs_equal(
+                f"{UF_PLANE}{shape} {name} pass", plain[name], passes[name]
+            ))
+        got = czo.unfused_grid_vote(*args, **st)
+        torch.cuda.synchronize()
+        want = czo.reference_unfused_grid_vote(*args, **st)
+        worst = max(worst, outputs_equal(f"{UF_PLANE}{shape}", want, got))
+        fused = czo.fused_grid_vote(*args, **st)
+        torch.cuda.synchronize()
+        worst = max(worst, outputs_equal(f"{UF_PLANE}{shape} vs fused", fused, got))
+        log(f"exact: {UF_PLANE}{shape}: each pass, the composition, the fused kernel")
+    return worst
+
+
+def time_unfused(ctx) -> dict:
+    """#6 at the Compartmentalized main shape: CUDA-event median of 30
+    calls, the profiler's device time of one call (which must be six
+    kernel launches, one of each pass), the plain passes' time, and the
+    fused kernel's on the same inputs. Its bound is the bytes each pass
+    needs on these inputs (grid_vote_needed), summed over the six
+    passes; ``bytes`` is every byte each pass reads and writes."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    registry, czo = ctx["registry"], ctx["czo"]
+    R, C, NR, G, W = CZ_MAIN
+    args = registry.to_torch(
+        czo.example_grid_vote_args(np.random.default_rng(7), *CZ_MAIN), "cuda"
+    )
+    st = dict(retry_timeout=16)
+    launch, outs, passes = czo.prepared_unfused_launch(*args, **st)
+    fused_launch, fused_outs = czo.prepared_launch(*args, **st)
+    slot = dict(zip(czo.GRID_VOTE_IN_SLOTS, args))
+    for name, (_, written) in czo.UNFUSED_PASS_IO.items():
+        slot.update(zip(written, passes[name]))
+    pass_bytes = {
+        name: nbytes([slot[k] for k in reads + written])
+        for name, (reads, written) in czo.UNFUSED_PASS_IO.items()
+    }
+    moved = sum(pass_bytes.values())
+    fused_needed, pass_needed = grid_vote_needed(czo, args, st, CZ_MAIN)
+    needed = sum(pass_needed.values())
+    # int32 operations per grid cell, replica cell and slot over the six
+    # passes, counted from the kernel source.
+    cells, rep_cells = R * C * G * W, NR * G * W
+    ops = cells * 22 + rep_cells * 12 + G * W * 25
+    bytes_ms = needed / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+
+    # A warm-up step first: the profiler misses the kernels launched just
+    # after it starts tracing, so only the second step's are counted.
+    calls = 20
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+    ) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                launch()
+            torch.cuda.synchronize()
+            prof.step()
+    per_pass, device_us = {}, 0.0
+    for e in prof.key_averages():
+        m = re.search(UF_KERNEL_RE, e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            per_pass[m.group(1)] = per_pass.get(m.group(1), 0) + e.count
+            device_us += float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+    if len(per_pass) != 6 or any(n != calls for n in per_pass.values()):
+        raise AssertionError(f"{UF_PLANE}: kernel launches in {calls} calls: {per_pass}")
+
+    fused_ms = time_ms(fused_launch)
+    ms = time_ms(launch)
+    fused_ms_again = time_ms(fused_launch)
+    return {
+        "name": UF_PLANE,
+        "route": "cuda",
+        "source": "frankenpaxos_tpu_torch/csrc/compartmentalized.cu",
+        "replaces": czo.UNFUSED_REPLACES,
+        "kernels_per_launch": 6,
+        "exact": True,
+        "ms": ms,
+        "device_ms": device_us / 1e3 / calls,
+        "wrapper_ms": time_ms(lambda: czo.unfused_grid_vote(*args, **st)),
+        "plain_ms": time_ms(
+            lambda: czo.reference_unfused_grid_vote(*args, **st), reps=10
+        ),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": moved,
+        "bound_bytes": needed,
+        "pass_bytes": pass_bytes,
+        "pass_bound_bytes": pass_needed,
+        "fused_bytes": nbytes(args) + nbytes(fused_outs),
+        "fused_bound_bytes": fused_needed,
+        "fused_ms": [fused_ms, fused_ms_again],
+        "library_ms": None,
+    }
+
+
+def run_microbench(ctx) -> dict:
+    """The port's microbench on the card at its default (flagship) sizes,
+    with few iterations: its JSON lines are printed as it runs. Raises on
+    a kernel whose outputs differ from its plain version's and on a race
+    whose sides differ. Returns the launch counts of the run and the
+    summaries."""
+    from frankenpaxos_tpu_torch.harness import microbench as mbh
+
+    registry = ctx["registry"]
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    kernels = mbh.bench_kernels(iters=5)[-1]
+    races = {
+        "fused_tick": mbh.bench_fused_tick(iters=10, rounds=3)[-1],
+        "grid_vote": mbh.bench_grid_vote(iters=20, rounds=5)[-1],
+        "depgraph": mbh.bench_depgraph(rounds=2)[-1],
+    }
+    secs = time.perf_counter() - t0
+    launches = dict(registry.LAUNCHES)
+    bad = [n for n, e in kernels["planes"].items() if e["parity"] is not True]
+    bad += [n for n, r in races.items() if r["bit_identical"] is not True]
+    if bad:
+        raise AssertionError(f"microbench: outputs differ in {bad}")
+    # One parity call and 20 x 5 timed calls of the grid-vote race.
+    if launches[UF_PLANE] != 101 or any(
+        launches[name] <= 0 for name in registry.PLANES
+    ):
+        raise AssertionError(f"microbench launches: {launches}")
+    log(json.dumps({
+        "phase": "microbench", "card": ctx["card"], "seconds": secs,
+        "launches": launches,
+    }))
+    return {"launches": launches, "kernels": kernels, **races}
+
+
+
 def main() -> int:
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1985,6 +2213,20 @@ def main() -> int:
     main_launches[CR_PLANE] = cd[CR_PLANE]
     main_launches[DG_PLANE] = cd[DG_PLANE]
 
+    # -- 43-45. the six-pass grid vote and the port's microbench -----------------
+    uf_err = check_unfused(ctx)
+    uf_row = time_unfused(ctx)
+    mbench = run_microbench(ctx)
+    uf_row["launches"] = mbench["launches"][UF_PLANE]
+    uf_row["max_abs_err"] = uf_err
+    log(json.dumps({
+        "phase": "grid_vote_race", "card": card,
+        "unfused_ms": uf_row["ms"], "fused_ms": uf_row["fused_ms"],
+        "unfused_device_ms": uf_row["device_ms"],
+        "grid_vote_json_speedup": mbench["grid_vote"]["speedup"],
+        "fused_tick_json_speedup": mbench["fused_tick"]["speedup"],
+    }))
+
     # -- 23. timing at the main shapes -----------------------------------------
     # int32 operations per acceptor-slot and per slot (vote step,
     # dispatch slot body), counted from the kernel source.
@@ -2047,26 +2289,15 @@ def main() -> int:
     # The grid-vote kernel at the Compartmentalized main shape. Its bound
     # counts the bytes these inputs need: every input and output once,
     # except the latencies and masks the kernel reads only where they are
-    # used (p2b_lat / p2b_del at voting cells, retry_del at the cells of
-    # timed-out slots and retry_lat where they re-send, rep_lat at newly
-    # chosen slots).
+    # used (grid_vote_needed).
     args = registry.to_torch(
         czo.example_grid_vote_args(np.random.default_rng(7), *CZ_MAIN), "cuda"
     )
     st = dict(retry_timeout=16)
     launch, outs = czo.prepared_launch(*args, **st)
     moved = nbytes(args) + nbytes(outs)
-    plain = czo.reference_grid_vote(*args, **st)
-    newly, timed, votes = plain[6], plain[7], plain[8]
+    needed, _ = grid_vote_needed(czo, args, st, CZ_MAIN)
     cells, rep_cells = R * C * G_cz * W_cz, NR * G_cz * W_cz
-    voted = int(votes.sum())
-    timed_cells = int(timed.sum()) * R * C
-    resent = int((timed[None, None] & args[10]).sum())
-    armed = int(newly.sum()) * NR
-    needed = moved - (
-        (cells - voted) * 5 + (cells - timed_cells) + (cells - resent) * 4
-        + (rep_cells - armed) * 4
-    )
     # int32 operations per grid cell, replica cell and slot, counted from
     # the kernel source.
     ops = cells * 12 + rep_cells * 10 + G_cz * W_cz * 20
@@ -2169,6 +2400,8 @@ def main() -> int:
         "craq_chain_kernel_ms": cd_rows[0]["ms"],
         "depgraph_execute_kernel_ms": cd_rows[1]["ms"],
     }))
+
+    rows.append(uf_row)
 
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))

@@ -10,7 +10,8 @@
   * :mod:`frankenpaxos_tpu_torch.ops.compartmentalized`: the
     Compartmentalized MultiPaxos acceptor-grid plane, a hand-written CUDA
     kernel for Hopper (``csrc/compartmentalized.cu``) beside its plain
-    PyTorch version.
+    PyTorch version, and its six-pass twin (six kernels beside six plain
+    passes), the race baseline of the microbench.
   * :mod:`frankenpaxos_tpu_torch.ops.mencius` and
     :mod:`frankenpaxos_tpu_torch.ops.fastmultipaxos`: the Mencius and
     Fast MultiPaxos vote planes, each a hand-written CUDA kernel for
@@ -50,6 +51,8 @@ from frankenpaxos_tpu_torch.ops.multipaxos import (  # noqa: F401
 from frankenpaxos_tpu_torch.ops.compartmentalized import (  # noqa: F401
     fused_grid_vote,
     reference_grid_vote,
+    reference_unfused_grid_vote,
+    unfused_grid_vote,
 )
 from frankenpaxos_tpu_torch.ops.mencius import (  # noqa: F401
     fused_mencius_vote,

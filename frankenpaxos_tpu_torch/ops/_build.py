@@ -145,6 +145,15 @@ def load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int),  # ints
             ctypes.c_void_p,  # stream
         ]
+        lib.fpx_czu_num_slots.restype = ctypes.c_int
+        lib.fpx_czu_num_slots.argtypes = []
+        lib.fpx_czu_launch.restype = ctypes.c_int
+        lib.fpx_czu_launch.argtypes = [
+            ctypes.c_int,  # which pass
+            ctypes.POINTER(ctypes.c_void_p),  # ptrs
+            ctypes.POINTER(ctypes.c_int),  # ints
+            ctypes.c_void_p,  # stream
+        ]
         for name in (
             "fpx_cz", "fpx_mencius", "fpx_fmp", "fpx_horizontal", "fpx_scalog",
             "fpx_craq", "fpx_depgraph",

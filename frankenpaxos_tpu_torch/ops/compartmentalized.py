@@ -27,6 +27,17 @@ card; it never falls back from the card to the plain version.
 Bound: the kernel is bound by the bytes it moves (a few integer ops per
 byte). At the main shape ``(R, C, NR, G, W) = (2, 2, 3, 25000, 32)`` it
 moves ~117 B per ring slot, ~94 MB a launch: ~28 us at 3.35 TB/s.
+
+:func:`unfused_grid_vote` (replaces the Pallas ``unfused_grid_vote`` at
+``frankenpaxos_tpu/ops/compartmentalized.py:497``) is the same work in
+six passes, each its own CUDA kernel that reads its inputs from device
+memory and writes its outputs there: clock aging, the Phase2b vote, the
+vote counts, the choose, the replica watermark and the retry. It exists
+to be raced against the fused kernel (``harness/microbench.py``
+``bench_grid_vote``): the six passes price the round trips of the
+``[R, C, G, W]`` planes that the fused kernel deletes. Nothing in the
+simulator dispatches it. :func:`reference_unfused_grid_vote` chains the
+six plain passes, line for line the Pallas pass bodies.
 """
 
 from __future__ import annotations
@@ -131,6 +142,135 @@ def reference_grid_vote(
 
 
 # ---------------------------------------------------------------------------
+# The six-pass twin: plain passes (line for line the Pallas pass bodies of
+# frankenpaxos_tpu/ops/compartmentalized.py:382-495)
+# ---------------------------------------------------------------------------
+
+UNFUSED_PASSES = ("age", "vote", "counts", "choose", "replica", "retry")
+
+
+def _uf_age(p2a, p2b, rep_arrival):
+    """Pass 1: clock aging of the three clock planes."""
+    return age_clock(p2a), age_clock(p2b), age_clock(rep_arrival)
+
+
+def _uf_vote(p2a, p2b, p2b_del, p2b_lat):
+    """Pass 2: acceptors whose aged Phase2a arrives now vote (the
+    Phase2b min-write where the vote is delivered)."""
+    voted = p2a == 0
+    return torch.where(
+        voted & p2b_del, torch.minimum(p2b, p2b_lat.to(p2b.dtype)), p2b
+    )
+
+
+def _uf_counts(p2a, p2b_del):
+    """Pass 3: the vote mask read again for the tick's proxy-load and
+    telemetry counts: votes cast and dropped, int32 ``[G, W]``."""
+    voted = p2a == 0
+    votes = voted.sum(dim=(0, 1), dtype=torch.int32)
+    dropped = (voted & ~p2b_del).sum(dim=(0, 1), dtype=torch.int32)
+    return votes, dropped
+
+
+def _uf_choose(p2b, status, alive_of_pos):
+    """Pass 4: every row voted, collected by a live proxy: CHOSEN, and
+    the newly-chosen mask."""
+    quorum = torch.all(torch.any(p2b <= 0, dim=1), dim=0)
+    newly = (status == PROPOSED) & quorum & alive_of_pos
+    return torch.where(newly, CHOSEN, status), newly
+
+
+def _uf_replica(rep_arrival, status, newly, rep_exec, head, next_slot, rep_lat):
+    """Pass 5: the commit broadcast is armed at newly-chosen slots, and
+    each replica's watermark advances over its contiguous arrived prefix
+    (the live range tests the ring position, as in JAX)."""
+    W = status.shape[1]
+    w_iota = torch.arange(W, dtype=torch.int32, device=status.device)
+    ord_of_pos = (w_iota[None, :] - head[:, None]) % W
+    live_ord = w_iota[None, :] < (next_slot - head)[:, None]
+    rep = torch.where(newly[None], rep_lat.to(rep_arrival.dtype), rep_arrival)
+    ready = (status == CHOSEN)[None] & (rep <= 0) & live_ord[None]
+    first_gap = torch.amin(torch.where(ready, W, ord_of_pos[None]), dim=2)
+    return rep, torch.maximum(rep_exec, head[None, :] + first_gap)
+
+
+def _uf_retry(p2a, status, last_send, alive_of_pos, retry_del, retry_lat, t,
+              *, retry_timeout: int):
+    """Pass 6: a timed-out PROPOSED slot re-sends Phase2a to the full
+    grid, overwriting the aged clock (``p2a`` is the aged plane of pass
+    1, ``status`` the chosen one of pass 4)."""
+    timed = (status == PROPOSED) & (t - last_send >= retry_timeout) & alive_of_pos
+    resend = timed[None, None] & retry_del
+    p2a = torch.where(resend, retry_lat.to(p2a.dtype), p2a)
+    return p2a, torch.where(timed, t, last_send), timed
+
+
+# The planes each pass reads and writes, by the wrapper's pointer-slot
+# names ("a_*": the aged clock planes that pass 1 writes), in the order of
+# the plain pass's arguments and outputs (``t`` aside): what a pass moves
+# through device memory.
+UNFUSED_PASS_IO = {
+    "age": (("p2a", "p2b", "rep"), ("a_p2a", "a_p2b", "a_rep")),
+    "vote": (("a_p2a", "a_p2b", "p2b_del", "p2b_lat"), ("o_p2b",)),
+    "counts": (("a_p2a", "p2b_del"), ("o_votes", "o_dropped")),
+    "choose": (("o_p2b", "status", "alive"), ("o_status", "o_newly")),
+    "replica": (
+        ("a_rep", "o_status", "o_newly", "rep_exec", "head", "next", "rep_lat"),
+        ("o_rep", "o_rep_exec"),
+    ),
+    "retry": (
+        ("a_p2a", "o_status", "ls", "alive", "retry_del", "retry_lat"),
+        ("o_p2a", "o_ls", "o_timed"),
+    ),
+}
+
+
+def reference_unfused_passes(
+    p2a, p2b, rep_arrival, status, last_send, rep_exec, head, next_slot,
+    alive_of_pos, p2b_del, retry_del, p2b_lat, retry_lat, rep_lat, t,
+    *,
+    retry_timeout: int,
+) -> dict:
+    """The six plain passes chained as the Pallas ``unfused_grid_vote``
+    chains its kernels: ``{pass: outputs}``, each pass's outputs in the
+    order of :data:`UNFUSED_PASS_IO`."""
+    age = _uf_age(p2a, p2b, rep_arrival)
+    vote = (_uf_vote(age[0], age[1], p2b_del, p2b_lat),)
+    counts = _uf_counts(age[0], p2b_del)
+    choose = _uf_choose(vote[0], status, alive_of_pos)
+    replica = _uf_replica(
+        age[2], choose[0], choose[1], rep_exec, head, next_slot, rep_lat
+    )
+    retry = _uf_retry(
+        age[0], choose[0], last_send, alive_of_pos, retry_del, retry_lat, t,
+        retry_timeout=retry_timeout,
+    )
+    return dict(
+        age=age, vote=vote, counts=counts, choose=choose, replica=replica,
+        retry=retry,
+    )
+
+
+def _unfused_outputs(passes: dict) -> tuple:
+    """The ten outputs of the grid vote, out of the passes' outputs."""
+    (_, vote, counts, choose, replica, retry) = (
+        passes[name] for name in UNFUSED_PASSES
+    )
+    return (
+        retry[0], vote[0], replica[0], choose[0], retry[1], replica[1],
+        choose[1], retry[2], counts[0], counts[1],
+    )
+
+
+def reference_unfused_grid_vote(*args, retry_timeout: int):
+    """The six plain passes chained (:func:`reference_unfused_passes`);
+    the outputs of :func:`reference_grid_vote`."""
+    return _unfused_outputs(
+        reference_unfused_passes(*args, retry_timeout=retry_timeout)
+    )
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
@@ -142,6 +282,8 @@ _PTR_SLOTS = (
     "o_p2a", "o_p2b", "o_rep", "o_status", "o_ls", "o_rep_exec",
     "o_newly", "o_timed", "o_votes", "o_dropped",
 )
+# The wrappers' tensor arguments by slot name, in argument order.
+GRID_VOTE_IN_SLOTS = _PTR_SLOTS[:14]
 _IN_SPECS = {  # slot: (shape kind, dtype)
     "p2a": ("rcgw", torch.int16), "p2b": ("rcgw", torch.int16),
     "rep": ("ngw", torch.int16), "status": ("gw", torch.int8),
@@ -154,7 +296,9 @@ _IN_SPECS = {  # slot: (shape kind, dtype)
 _PLANE = "compartmentalized_grid_vote"
 
 
-def _check_inputs(ins: dict, R: int, C: int, NR: int, G: int, W: int) -> None:
+def _check_inputs(
+    plane: str, ins: dict, R: int, C: int, NR: int, G: int, W: int
+) -> None:
     shapes = {
         "rcgw": (R, C, G, W), "ngw": (NR, G, W), "ng": (NR, G),
         "gw": (G, W), "g": (G,),
@@ -163,30 +307,27 @@ def _check_inputs(ins: dict, R: int, C: int, NR: int, G: int, W: int) -> None:
         kind, dtype = _IN_SPECS[slot]
         if tuple(x.shape) != shapes[kind]:
             raise ValueError(
-                f"{_PLANE}: {slot} has shape {tuple(x.shape)}, want "
+                f"{plane}: {slot} has shape {tuple(x.shape)}, want "
                 f"{shapes[kind]}"
             )
         if x.dtype != dtype:
             raise TypeError(
-                f"{_PLANE}: {slot} has dtype {x.dtype}, want {dtype} (the "
+                f"{plane}: {slot} has dtype {x.dtype}, want {dtype} (the "
                 f"kernel takes the State's dtype policy only)"
             )
         if not x.is_contiguous():
-            raise ValueError(f"{_PLANE}: {slot} is not contiguous")
+            raise ValueError(f"{plane}: {slot} is not contiguous")
 
 
-def _grid_vote_kernel(
-    p2a, p2b, rep_arrival, status, last_send, rep_exec, head, next_slot,
-    alive_of_pos, p2b_del, retry_del, p2b_lat, retry_lat, rep_lat, t,
-    block: int = 0,
-    *,
-    retry_timeout: int,
+def _prepare_grid_vote(
+    plane, p2a, p2b, rep_arrival, status, last_send, rep_exec, head,
+    next_slot, alive_of_pos, p2b_del, retry_del, p2b_lat, retry_lat, rep_lat,
+    t, block=0, *, retry_timeout,
 ):
-    """Check the tensors, allocate the outputs and pack the launch;
-    returns ``(launch, outputs)``. The launch loads the CUDA library, so
-    the checks run without a card."""
-    from frankenpaxos_tpu_torch.ops import _build
-
+    """The checks and output allocation that the fused and the unfused
+    wrappers share. Returns ``(ins, outs, ints)``: the input and output
+    tensors by pointer slot and the launch's integer arguments ``(R, C,
+    NR, G, W, t, retry_timeout, gpb)``."""
     R, C, G, W = p2a.shape
     NR = rep_arrival.shape[0]
     ins = dict(
@@ -195,10 +336,10 @@ def _grid_vote_kernel(
         p2b_del=p2b_del, retry_del=retry_del, p2b_lat=p2b_lat,
         retry_lat=retry_lat, rep_lat=rep_lat,
     )
-    _check_inputs(ins, R, C, NR, G, W)
+    _check_inputs(plane, ins, R, C, NR, G, W)
     t = int(t)
     if not -(2**31) <= t < 2**31:
-        raise ValueError(f"{_PLANE}: tick {t} outside int32")
+        raise ValueError(f"{plane}: tick {t} outside int32")
     gpb = block if block > 0 else max(1, 256 // W)
     gpb = max(1, min(gpb, 1024 // W))
 
@@ -217,27 +358,47 @@ def _grid_vote_kernel(
         o_votes=empty((G, W), torch.int32),
         o_dropped=empty((G, W), torch.int32),
     )
+    return ins, outs, (R, C, NR, G, W, t, retry_timeout, gpb)
+
+
+_OUT_ORDER = (
+    "o_p2a", "o_p2b", "o_rep", "o_status", "o_ls", "o_rep_exec", "o_newly",
+    "o_timed", "o_votes", "o_dropped",
+)
+
+
+def _launch_error(plane: str, lib, err: int, what: str = "kernel") -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{plane}: {what} launch failed: "
+            f"{lib.fpx_error_string(err).decode()} (cuda error {err})"
+        )
+
+
+def _grid_vote_kernel(*args, retry_timeout: int):
+    """Check the tensors, allocate the outputs and pack the launch;
+    returns ``(launch, outputs)``. The launch loads the CUDA library, so
+    the checks run without a card. ``args``: the wrapper's positional
+    arguments, ``t`` and ``block`` included."""
+    from frankenpaxos_tpu_torch.ops import _build
+
+    ins, outs, ints = _prepare_grid_vote(
+        _PLANE, *args, retry_timeout=retry_timeout
+    )
     tensors = {**ins, **outs}
     ptrs = (ctypes.c_void_p * len(_PTR_SLOTS))(
         *[tensors[s].data_ptr() for s in _PTR_SLOTS]
     )
-    ints = (ctypes.c_int * 8)(R, C, NR, G, W, t, retry_timeout, gpb)
-    device = p2a.device
+    ints = (ctypes.c_int * len(ints))(*ints)
+    device = ins["p2a"].device
 
     def launch() -> None:
         lib = _build.kernel_lib("fpx_cz", len(_PTR_SLOTS))
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fpx_cz_launch(ptrs, ints, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"{_PLANE}: kernel launch failed: "
-                f"{lib.fpx_error_string(err).decode()} (cuda error {err})"
-            )
+        _launch_error(_PLANE, lib, lib.fpx_cz_launch(ptrs, ints, stream))
         registry.count_launch(_PLANE)
 
-    order = ("o_p2a", "o_p2b", "o_rep", "o_status", "o_ls", "o_rep_exec",
-             "o_newly", "o_timed", "o_votes", "o_dropped")
-    return launch, tuple(outs[k] for k in order)
+    return launch, tuple(outs[k] for k in _OUT_ORDER)
 
 
 def fused_grid_vote(
@@ -273,6 +434,91 @@ def prepared_launch(*args, **statics) -> tuple:
     those outputs (and counts as a launch). On CPU tensors it runs the
     wrapper's checks alone: only the launch needs the card."""
     return _grid_vote_kernel(*args, **statics)
+
+
+# ---------------------------------------------------------------------------
+# The six-pass wrapper
+# ---------------------------------------------------------------------------
+
+# Pointer slots of the six passes' argument block, in the order of the
+# `UfSlot` enum of csrc/compartmentalized.cu: the inputs, the three aged
+# clock planes that pass 1 writes and later passes read, the outputs.
+_UF_PTR_SLOTS = (
+    GRID_VOTE_IN_SLOTS + ("a_p2a", "a_p2b", "a_rep") + _PTR_SLOTS[14:]
+)
+UNFUSED_PLANE = "compartmentalized_unfused_grid_vote"
+UNFUSED_REPLACES = (
+    "frankenpaxos_tpu/ops/compartmentalized.py:497 unfused_grid_vote "
+    "(pallas_call :528, :545, :558, :574, :589, :605)"
+)
+# No plane dispatches the six-pass kernel (it is a race baseline of the
+# microbench), so its launch count is set up here.
+registry.LAUNCHES.setdefault(UNFUSED_PLANE, 0)
+
+
+def prepared_unfused_launch(*args, retry_timeout: int) -> tuple:
+    """:func:`prepared_launch` for :func:`unfused_grid_vote`: returns
+    ``(launch, outputs, passes)``. Each ``launch()`` runs the six passes
+    once, in order on the current stream, into the same tensors, checks
+    each launch, and counts one launch of the six-pass kernel.
+    ``passes`` holds each pass's output tensors by pass name (the aged
+    planes and the outputs, the layout of
+    :func:`reference_unfused_passes`)."""
+    from frankenpaxos_tpu_torch.ops import _build
+
+    ins, outs, ints = _prepare_grid_vote(
+        UNFUSED_PLANE, *args, retry_timeout=retry_timeout
+    )
+    aged = {f"a_{k}": torch.empty_like(ins[k]) for k in ("p2a", "p2b", "rep")}
+    tensors = {**ins, **aged, **outs}
+    ptrs = (ctypes.c_void_p * len(_UF_PTR_SLOTS))(
+        *[tensors[s].data_ptr() for s in _UF_PTR_SLOTS]
+    )
+    ints = (ctypes.c_int * len(ints))(*ints)
+    device = ins["p2a"].device
+
+    def launch() -> None:
+        lib = _build.kernel_lib("fpx_czu", len(_UF_PTR_SLOTS))
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for which, name in enumerate(UNFUSED_PASSES):
+            err = lib.fpx_czu_launch(which, ptrs, ints, stream)
+            _launch_error(UNFUSED_PLANE, lib, err, f"{name} pass")
+        registry.count_launch(UNFUSED_PLANE)
+
+    passes = {
+        name: tuple(tensors[k] for k in written)
+        for name, (_, written) in UNFUSED_PASS_IO.items()
+    }
+    return launch, tuple(outs[k] for k in _OUT_ORDER), passes
+
+
+def unfused_grid_vote(
+    p2a, p2b, rep_arrival, status, last_send, rep_exec, head, next_slot,
+    alive_of_pos, p2b_del, retry_del, p2b_lat, retry_lat, rep_lat, t,
+    block: int = 0,
+    *,
+    retry_timeout: int = 8,
+):
+    """:func:`reference_unfused_grid_vote` as six CUDA kernels on the
+    card (the plain passes on the CPU); the signature and outputs of
+    :func:`fused_grid_vote`. Replaces the Pallas ``unfused_grid_vote``
+    (frankenpaxos_tpu/ops/compartmentalized.py:497). Bound by bytes:
+    every pass reads its inputs from device memory and writes its outputs
+    there, at most ~155 MB at the main shape (2, 2, 3, 25000, 32); the
+    passes skip the masks and latencies they do not use (see
+    csrc/compartmentalized.cu). ``block``: groups per CTA of the replica
+    pass."""
+    args = (
+        p2a, p2b, rep_arrival, status, last_send, rep_exec, head, next_slot,
+        alive_of_pos, p2b_del, retry_del, p2b_lat, retry_lat, rep_lat,
+    )
+    if on_cpu(args):
+        return reference_unfused_grid_vote(*args, t, retry_timeout=retry_timeout)
+    launch, out, _ = prepared_unfused_launch(
+        *args, t, block, retry_timeout=retry_timeout
+    )
+    launch()
+    return out
 
 
 # ---------------------------------------------------------------------------

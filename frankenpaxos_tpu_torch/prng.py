@@ -21,8 +21,8 @@ module reproduces jax's default PRNG exactly: ``threefry2x32`` with
 Counterparts in ``jax/_src/prng.py``: ``threefry_seed``,
 ``iota_2x32_shape``, ``_threefry2x32_lowering``,
 ``_threefry_split_foldlike``, ``_threefry_fold_in`` and
-``_threefry_random_bits_partitionable``; ``randint`` follows
-``jax/_src/random.py:_randint``.
+``_threefry_random_bits_partitionable``; ``randint`` and ``uniform``
+follow ``jax/_src/random.py:_randint`` and ``_uniform``.
 """
 
 from __future__ import annotations
@@ -137,3 +137,41 @@ def randint(
     out = (minval + offset) & MASK32
     out = torch.where(out >= 2**31, out - 2**32, out)
     return out.to(torch.int32)
+
+
+def uniform(
+    key: torch.Tensor,
+    shape: Sequence[int],
+    minval: float = 0.0,
+    maxval: float = 1.0,
+    device=None,
+) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)``
+    for float32, bit for bit, as ``jax._src.random._uniform`` does it:
+    the top 23 bits of a 32-bit draw become the mantissa of a float in
+    [1, 2), which is shifted to [0, 1), scaled by ``maxval - minval``,
+    offset by ``minval`` and floored at ``minval``.
+
+    XLA contracts the scale and the offset into one fused multiply-add,
+    rounded once. Torch has no fused multiply-add, so the product is
+    taken in float64, where it is exact (24 by 24 bits), and the sum is
+    rounded once more to float32; where the float64 sum lies exactly
+    halfway between two floats, it is stepped one float64 ulp towards
+    the exact sum (its error, from TwoSum), so the tie goes the way the
+    single rounding takes it. With the default bounds the scale and the
+    offset are exact and this changes nothing."""
+    shape = tuple(int(s) for s in shape)
+    f32, f64 = torch.float32, torch.float64
+    lo = torch.tensor(minval, dtype=f32, device=device)
+    hi = torch.tensor(maxval, dtype=f32, device=device)
+    mantissa = (bits(key, shape, device) >> 9) | 0x3F800000  # < 2**31
+    floats = mantissa.to(torch.int32).view(f32) - 1.0
+    prod = floats.to(f64) * (hi - lo).to(f64)
+    lo64 = lo.to(f64)
+    total = prod + lo64
+    back = total - prod
+    err = (prod - (total - back)) + (lo64 - back)
+    tie = (total.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+    toward = torch.where(err > 0, math.inf, -math.inf).to(f64)
+    total = torch.where(tie & (err != 0), torch.nextafter(total, toward), total)
+    return torch.maximum(lo, total.to(f32))

@@ -1,8 +1,9 @@
 """The port's Compartmentalized grid-vote plane (the plain PyTorch
 version, which the CUDA kernel is held against on the card) against the
 JAX package's ``reference_grid_vote`` and its Pallas ``fused_grid_vote``
-in interpret mode: the same numpy inputs, all ten outputs equal, dtypes
-included."""
+in interpret mode, and the port's six-pass twin ``unfused_grid_vote``
+against the Pallas ``unfused_grid_vote`` in interpret mode: the same
+numpy inputs, all ten outputs equal, dtypes included."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,3 +150,75 @@ def test_kernel_checks_accept_w_over_1024(shape):
     port = tcz.reference_grid_vote(*torch_args, retry_timeout=8)
     assert [(o.shape, o.dtype) for o in outs] == [(p.shape, p.dtype) for p in port]
     _assert_equal(jcz.reference_grid_vote(*_jax_args(args), retry_timeout=8), port)
+
+
+UNFUSED_SHAPES = [(2, 2, 3, 8, 8), (2, 3, 2, 7, 16)]  # R, C, NR, G, W
+
+
+@pytest.mark.parametrize("shape", UNFUSED_SHAPES)
+def test_unfused_matches_jax_interpret_kernel(shape):
+    """The six-pass wrapper on CPU tensors (the six plain passes) equals
+    the Pallas six-pass kernel, all ten outputs and dtypes, tolerance 0."""
+    registry.reset_launches()
+    args = _args(shape)
+    port = tcz.unfused_grid_vote(
+        *registry.to_torch(args, "cpu"), retry_timeout=8
+    )
+    kern = jcz.unfused_grid_vote(
+        *_jax_args(args), block=16, interpret=True, retry_timeout=8
+    )
+    _assert_equal(kern, port)
+    assert registry.LAUNCHES[tcz.UNFUSED_PLANE] == 0
+
+
+@pytest.mark.parametrize("shape", SHAPES + UNFUSED_SHAPES)
+def test_unfused_plain_equals_fused_plain(shape):
+    """The six plain passes chained compute the one-pass plain version."""
+    args = registry.to_torch(_args(shape), "cpu")
+    got = tcz.reference_unfused_grid_vote(*args, retry_timeout=8)
+    want = tcz.reference_grid_vote(*args, retry_timeout=8)
+    for name, g, w in zip(tcz.GRID_VOTE_OUTS, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 3, 2, 2048), (2, 3, 2, 1, 1030)])
+def test_unfused_kernel_checks_accept_w_over_1024(shape):
+    """The six-pass wrapper's checks take W > 1024 and allocate the
+    fused wrapper's outputs; its plain passes there equal the JAX
+    reference."""
+    args = _args(shape)
+    torch_args = registry.to_torch(args, "cpu")
+    _, outs, passes = tcz.prepared_unfused_launch(*torch_args, retry_timeout=8)
+    _, fused_outs = tcz.prepared_launch(*torch_args, retry_timeout=8)
+    assert [(o.shape, o.dtype) for o in outs] == [
+        (o.shape, o.dtype) for o in fused_outs
+    ]
+    plain = tcz.reference_unfused_passes(*torch_args, retry_timeout=8)
+    assert list(passes) == list(plain) == list(tcz.UNFUSED_PASSES)
+    for name in tcz.UNFUSED_PASSES:
+        assert [(o.shape, o.dtype) for o in passes[name]] == [
+            (o.shape, o.dtype) for o in plain[name]
+        ], name
+    port = tcz.reference_unfused_grid_vote(*torch_args, retry_timeout=8)
+    _assert_equal(jcz.reference_grid_vote(*_jax_args(args), retry_timeout=8), port)
+
+
+def test_unfused_wrapper_rejects_bad_inputs():
+    args = list(registry.to_torch(_args((2, 2, 3, 4, 8)), "cpu"))
+    args[9] = args[9].to(torch.int8)  # p2b_del must be bool
+    with pytest.raises(TypeError, match="compartmentalized_unfused_grid_vote"):
+        tcz.prepared_unfused_launch(*args, retry_timeout=8)
+    args = list(registry.to_torch(_args((2, 2, 3, 4, 8)), "cpu"))
+    args[3] = args[3].to("meta")
+    with pytest.raises(ValueError, match="several devices"):
+        tcz.unfused_grid_vote(*args, retry_timeout=8)
+
+
+def test_unfused_counter_is_not_a_plane():
+    """As in JAX, nothing dispatches the six-pass twin: it has a launch
+    count of its own but no registered plane."""
+    assert tcz.UNFUSED_PLANE in registry.LAUNCHES
+    assert tcz.UNFUSED_PLANE not in registry.PLANES
+    assert tcz.UNFUSED_PASSES == (
+        "age", "vote", "counts", "choose", "replica", "retry",
+    )

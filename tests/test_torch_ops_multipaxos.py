@@ -186,7 +186,7 @@ def test_cpu_calls_never_count_as_launches():
         "multipaxos_dispatch", "multipaxos_p1_promise",
         "compartmentalized_grid_vote", "mencius_vote", "fastmultipaxos_vote",
         "horizontal_vote", "scalog_cut_commit", "craq_chain",
-        "depgraph_execute",
+        "depgraph_execute", "compartmentalized_unfused_grid_vote",
     }
 
 

@@ -66,3 +66,29 @@ def test_randint(bounds):
     p = prng.randint(prng.PRNGKey(4), (3, 4, 16), lo, hi)
     assert p.dtype == torch.int32
     np.testing.assert_array_equal(j, p.numpy())
+
+
+@pytest.mark.parametrize(
+    "shape, bounds",
+    [
+        ((), (0.0, 1.0)),
+        ((7,), (0.0, 1.0)),
+        ((3, 5, 4), (0.0, 1.0)),
+        ((3, 5, 4), (-2.5, 3.25)),
+        ((2, 3, 11), (0.1, 0.2)),
+        ((4096,), (-1000.0, 7.0)),
+    ],
+)
+@pytest.mark.parametrize("seed", [0, 9])
+def test_uniform(seed, shape, bounds):
+    """float32 ``jax.random.uniform`` bit for bit (compared as int32
+    bits), the scale-and-offset rounding included at non-default bounds."""
+    lo, hi = bounds
+    jk = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    pk = prng.fold_in(prng.PRNGKey(seed), 3)
+    j = np.asarray(jax.random.uniform(jk, shape, minval=lo, maxval=hi))
+    p = prng.uniform(pk, shape, lo, hi, "cpu")
+    assert j.dtype == np.float32
+    assert p.dtype == torch.float32 and tuple(p.shape) == shape
+    np.testing.assert_array_equal(j.view(np.int32), p.view(torch.int32).numpy())
+    assert bool((p >= lo).all())
