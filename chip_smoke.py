@@ -104,11 +104,13 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
 37-40. BPaxos (5 leaders, 5 replicas, window 64: V = 320) at conflict
     1/4 (100 warm-up and 300 timed ticks, one execute launch a tick,
     profiled), at conflict 1 (SCCs form), at window 256 (V = 1280, the
-    global-scratch path, 50 ticks) and under drops, jitter and leader
-    lane 2 cut from tick 20 to 60;
+    working set in opted-in shared memory, 50 ticks, then 20 profiled)
+    and under drops, jitter and leader lane 2 cut from tick 20 to 60;
 41. CRAQ and BPaxos card against CPU, 120 ticks, every State leaf equal;
 42. the chain and execute kernels' rows (the execute kernel on the BPaxos
-    runs' own inputs) and the two tick splits;
+    runs' own inputs, with its shared bytes a CTA, shared or scratch, and
+    the word operations and rounds of its schedule on those inputs) and
+    the two tick splits;
 43. the six-pass grid vote (the race baseline of the fused one) held
     against its plain passes, pass by pass and composed, and its ten
     outputs against the fused kernel's, with a tolerance of zero, at
@@ -127,8 +129,11 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
 
 Both new kernels are held against their plain versions in phase 3 too:
 the chain kernel at five shapes on four inputs and three partitions, the
-execute kernel at four windows on four inputs, with its own and a shared
-adjacency, and against the host oracle at V = 320 and 1280.
+execute kernel at six windows on five inputs (the largest in shared
+memory, V = 1314, and the first on the global scratch, V = 1315, among
+them) and on an all-active dense graph at V = 1280, with its own and a
+shared adjacency, and against the host oracle at V = 320, 1280, 1314 and
+1315 and on the long path and the dense graph at V = 1280.
 
 Every launch count is set to 0 just before a main-path run and read just
 after it; launches made to compare or time a kernel are not counted.
@@ -1195,9 +1200,12 @@ CR_PLANE = "craq_chain"
 DG_PLANE = "depgraph_execute"
 # (N, W, L, KV) of the chain plane: the snapshot's per-chain shape at 2,500
 # chains (10,000 chain nodes) and 25,000; (B, V) of the execute plane: 5
-# replicas over the 5 x 64 window, and over 5 x 256 (global scratch).
+# replicas over the 5 x 64 window, and over 5 x 256; then the largest
+# window whose working set fits in a block's opted-in shared memory and
+# the first one on the global scratch.
 CR_SHAPES = ((2500, 16, 4, 64), (25000, 16, 4, 64))
 DG_SHAPES = ((5, 320), (5, 1280))
+DG_BOUNDARY = ((2, 1314), (2, 1315))
 
 
 def craq_statics(L: int, KV: int, partition: str = "none") -> dict:
@@ -1215,10 +1223,13 @@ def check_craq_dg_kernels(ctx) -> dict:
     the card, tolerance zero: the chain kernel at its main shapes, the
     snapshot's 256 chains and ragged shapes, on random and edge inputs,
     with no partition, one that heals and one that never heals; the
-    execute kernel at V = 320 and 1280 (global scratch) and ragged V, on
-    random and edge inputs, with a per-replica and a stride-0 shared
-    adjacency, and against the host oracle at V = 320 and 1280. Returns
-    the largest error per plane (0)."""
+    execute kernel at V = 320 and 1280, ragged V, and either side of the
+    shared-memory limit (1314 shared, 1315 on the global scratch), on
+    random and edge inputs (the long path among them) and on an
+    all-active dense graph at V = 1280, with a per-replica and a stride-0
+    shared adjacency, and against the host oracle at V = 320, 1280, 1314
+    and 1315 and on the long path and the dense graph. Returns the largest
+    error per plane (0)."""
     registry, cro, dgo = ctx["registry"], ctx["cro"], ctx["dgo"]
     err = {CR_PLANE: 0, DG_PLANE: 0}
     for shape in CR_SHAPES + ((256, 16, 4, 64), (7, 5, 3, 8), (33, 40, 5, 3)):
@@ -1234,29 +1245,44 @@ def check_craq_dg_kernels(ctx) -> dict:
                 label = f"{CR_PLANE}{shape} {case} {partition}"
                 err[CR_PLANE] = max(err[CR_PLANE], outputs_equal(label, want, got))
         log(f"exact: {CR_PLANE}{shape} on {cro.EDGE_CASES} x 3 partitions")
-    for B, V in DG_SHAPES + ((3, 33), (4, 600)):
+    def check_dg(B, V, case, graphs, oracle):
+        adj_np, com_np, act_np = graphs
+        adj = torch.from_numpy(adj_np.view(np.int32).copy()).cuda()
+        com, act = torch.from_numpy(com_np).cuda(), torch.from_numpy(act_np).cuda()
+        for label, a in (("", adj), (" shared", adj[:1].expand(adj.shape))):
+            got = dgo.fused_depgraph_execute(a, com, act)
+            torch.cuda.synchronize()
+            want = dgo.reference_depgraph_execute(a, com, act)
+            label = f"{DG_PLANE}{(B, V)} {case}{label}"
+            err[DG_PLANE] = max(err[DG_PLANE], outputs_equal(label, want, got))
+        if oracle:
+            got = dgo.fused_depgraph_execute(adj, com, act)
+            for b in range(B):
+                want = dgo.oracle_execute(adj_np[b], com_np[b], act_np[b])
+                for name, o, g in zip(dgo.DEPGRAPH_OUTS, want, got):
+                    if not np.array_equal(o, g[b].cpu().numpy()):
+                        raise AssertionError(f"{DG_PLANE}{(B, V)} {case} graph {b}: "
+                                             f"{name} differs from the oracle")
+            log(f"exact: {DG_PLANE}{(B, V)} {case} against the host oracle")
+
+    for B, V in DG_SHAPES + ((3, 33), (4, 600)) + DG_BOUNDARY:
         for case in dgo.EDGE_CASES:
-            adj_np, com_np, act_np = dgo.example_depgraph_args(
-                np.random.default_rng(V), B, V, case=case
+            graphs = dgo.example_depgraph_args(np.random.default_rng(V), B, V, case=case)
+            oracle = (case == "random" and (B, V) in DG_SHAPES + DG_BOUNDARY) or (
+                case == "long_path" and V == 1280
             )
-            adj = torch.from_numpy(adj_np.view(np.int32).copy()).cuda()
-            com, act = torch.from_numpy(com_np).cuda(), torch.from_numpy(act_np).cuda()
-            for label, a in (("", adj), (" shared", adj[:1].expand(adj.shape))):
-                got = dgo.fused_depgraph_execute(a, com, act)
-                torch.cuda.synchronize()
-                want = dgo.reference_depgraph_execute(a, com, act)
-                label = f"{DG_PLANE}{(B, V)} {case}{label}"
-                err[DG_PLANE] = max(err[DG_PLANE], outputs_equal(label, want, got))
-            if case == "random" and (B, V) in DG_SHAPES:
-                got = dgo.fused_depgraph_execute(adj, com, act)
-                for b in range(B):
-                    oracle = dgo.oracle_execute(adj_np[b], com_np[b], act_np[b])
-                    for name, o, g in zip(dgo.DEPGRAPH_OUTS, oracle, got):
-                        if not np.array_equal(o, g[b].cpu().numpy()):
-                            raise AssertionError(f"{DG_PLANE}{(B, V)} graph {b}: "
-                                                 f"{name} differs from the oracle")
-                log(f"exact: {DG_PLANE}{(B, V)} against the host oracle")
-        log(f"exact: {DG_PLANE}{(B, V)} on {dgo.EDGE_CASES}, own and shared rows")
+            check_dg(B, V, case, graphs, oracle)
+        log(f"exact: {DG_PLANE}{(B, V)} on {dgo.EDGE_CASES}, own and shared rows, "
+            f"{'shared memory' if dgo.working_set(V)[1] else 'global scratch'}")
+    # An all-active dense graph at V = 1280 (one SCC), with its commits at
+    # random and all committed.
+    B, V = DG_SHAPES[1]
+    adj_np, com_np, act_np = dgo.example_depgraph_args(
+        np.random.default_rng(V + 1), B, V, density=0.5
+    )
+    act_np = np.ones_like(act_np)
+    for case, com in (("dense", com_np), ("dense all_committed", np.ones_like(com_np))):
+        check_dg(B, V, case, (adj_np, com, act_np), oracle=True)
     return err
 
 
@@ -1428,7 +1454,13 @@ def craq_and_bpaxos(ctx) -> dict:
     wide = dataclasses.replace(bp, window=256)
     run = bpaxos_run(ctx, wide, 0, 50, "bpaxos_1280")
     out["dg_1280_tick_ms"] = run["line"]["seconds"] * 20
+    # The kernel row's inputs: the state after the 50 ticks (a tick builds
+    # a new State), as before this run was profiled.
     out["dg_1280_state"] = (wide, run["sim"].state, run["sim"].t)
+    prof = profile_ticks(run["sim"].run, run["sim"].sync, 20, card, "bpaxos_1280_profile",
+                         kernel="depgraph_kernel")
+    log(json.dumps(prof))
+    out["dg_1280_profiled_ms"] = prof["kernel_device_ms_per_launch"]
     del run
 
     # 40. BPaxos under a static plan: drops and jitter on the consensus
@@ -1476,11 +1508,16 @@ def craq_dg_kernel_rows(ctx, launches: dict, max_err: dict, cd: dict) -> list:
     kernel at its two main shapes (random inputs), bound by the bytes it
     moves: the node planes in and out and every write slot's fields. The
     execute kernel on the inputs of the BPaxos runs at V = 320 and 1280,
-    bound by the operations these inputs need: per active vertex k, a bit
-    test of every row word and an OR where the row holds k, then the
-    per-row passes (popcount and mask per word, a rank compare per pair)."""
+    bound by the operations these inputs need (:func:`dg_needed_ops`);
+    beside it, under ``bound_ms_warshall``, the bound of the kernel's
+    earlier rows (Warshall over all V rows and an O(V^2) rank). Beside the
+    bounds, the shared bytes a CTA (0 on the global scratch) and the rounds
+    of squaring the kernel counted in each graph on these inputs. Returns
+    the rows and, for a line of its own, the schedule model's counts on the
+    same inputs (:func:`dg_schedule_ops`)."""
     registry, cro, dgo, bb = ctx["registry"], ctx["cro"], ctx["dgo"], ctx["bb"]
     rows = []
+    model = {"name": DG_PLANE, "what": "dg_schedule_ops: a host model, not measured"}
     row = {
         "name": CR_PLANE, "route": "cuda", "source": registry.PLANES[CR_PLANE].source,
         "replaces": registry.PLANES[CR_PLANE].replaces,
@@ -1511,6 +1548,7 @@ def craq_dg_kernel_rows(ctx, launches: dict, max_err: dict, cd: dict) -> list:
         "replaces": registry.PLANES[DG_PLANE].replaces,
         "launches": launches[DG_PLANE], "launches_per_tick": 1, "exact": True,
         "max_abs_err": max_err[DG_PLANE], "device_ms_profiled": cd["dg_profiled_ms"],
+        "device_ms_profiled_1280": cd["dg_1280_profiled_ms"],
     }
     for i, which in enumerate(("dg_state", "dg_1280_state")):
         cfg, state, t = cd[which]
@@ -1519,19 +1557,100 @@ def craq_dg_kernel_rows(ctx, launches: dict, max_err: dict, cd: dict) -> list:
         B, V, VW = adj.shape
         launch, outs = dgo.prepared_launch(*args)
         n_active = int(act.sum())
-        ops = n_active * V * VW * 3 + B * (V * VW * 4 + V * V * 4)
+        ops = dg_needed_ops(dgo, *args)
+        warshall = n_active * V * VW * 3 + B * (V * VW * 4 + V * V * 4)
         moved = V * VW * 4 + nbytes((com, act)) + nbytes(outs)
         timed = _timed_vote_row(
             dgo.fused_depgraph_execute, dgo.reference_depgraph_execute, launch,
             args, {}, moved, moved, ops,
         )
+        timed["bound_ops"] = ops
+        timed["bound_ms_warshall"] = max(
+            moved / HBM_BYTES_PER_S * 1e3, warshall / INT32_OPS_PER_S * 1e3
+        )
+        timed["bound_ops_warshall"] = warshall
         timed["active_vertices"] = n_active
+        nbytes_ws, shared = dgo.working_set(V)
+        timed["working_set"] = "shared" if shared else "scratch"
+        timed["shared_bytes_per_cta"] = nbytes_ws if shared else 0
+        torch.cuda.synchronize()
+        timed["rounds_per_graph"] = launch.rounds.tolist()
         key = "" if i == 0 else "_1280"
         row.update({f"{k}{key}": v for k, v in timed.items()})
         row["shape" + key] = [B, V, VW]
+        word_ops, rounds = dg_schedule_ops(dgo, *args)
+        model.update({f"word_ops{key}": word_ops, f"lockstep_rounds{key}": rounds})
     row["library_ms"] = None
     rows.append(row)
-    return rows
+    return rows, model
+
+
+def dg_needed_ops(dgo, adj, committed, active) -> int:
+    """The word operations the execute plane needs on these inputs, graph
+    by graph, over the n active vertices and their naw active words: the
+    seed (n naw), the closure as a sequential walk would build it, each
+    active row ORing in a direct successor's finished row once per active
+    edge (E naw; reverse topological order of the condensation), the root,
+    size and eligibility passes (3 n naw), and a sort of the ne eligible
+    vertices by (size, id) (ne ceil(log2 ne))."""
+    B, V, VW = adj.shape
+    pad = VW * 32 - V
+    act = torch.nn.functional.pad(active, (0, pad))
+    naw = act.view(B, VW, 32).any(-1).sum(-1)
+    n = active.sum(-1)
+    off_diag = ~torch.eye(V, dtype=torch.bool, device=adj.device)
+    A = dgo.unpack_mask(adj, VW * 32)[:, :V, :V] & active[:, None, :] & active[:, :, None]
+    E = (A & off_diag).sum((-1, -2))
+    ne = dgo.reference_depgraph_execute(adj, committed, active)[0].sum(-1)
+    sort = ne * torch.ceil(torch.log2(ne.clamp(min=1).double())).long()
+    return int(((4 * n + E) * naw + sort).sum())
+
+
+def dg_schedule_ops(dgo, adj, committed, active) -> tuple:
+    """A host model of the execute kernel's schedule, not a measurement:
+    its word operations on these inputs and its most rounds in a graph,
+    counted with the rounds run in lockstep (each round reads the rows as
+    they stood at its start; the kernel, in place, may take fewer or more,
+    and counts its own in ``launch.rounds``): the seed (a word per active row and active
+    word), each round's pairs whose word is not yet full (a read per
+    active word and a load per set bit that the row pulls: all of them in
+    the first round and for a row written in the round before, else those
+    of the rows written in the round before; full ones stop at once), the
+    root and per-row passes (two per active row and active word, and at
+    most a test per set bit at or below the row's own id) and the rank
+    (eligible squared)."""
+    B, V, VW = adj.shape
+    pad = VW * 32 - V
+    act = torch.nn.functional.pad(active, (0, pad))  # [B, VW*32]
+    A = dgo.unpack_mask(adj, VW * 32)[:, :V, :] & act[:, None, :] & active[:, :, None]
+    eye = torch.eye(V, VW * 32, dtype=torch.bool, device=adj.device)
+    R = A | (eye[None] & active[:, :, None])  # [B, V, VW*32]
+    act_words = act.view(B, 1, VW, 32)
+    aw = act_words.any(-1)  # [B, 1, VW]
+    naw = aw.sum(-1)  # [B, 1]
+    n = active.sum(-1)
+    ops = int((n * naw[:, 0]).sum())
+    rounds = torch.zeros(B, dtype=torch.int64, device=adj.device)
+    live = n > 0
+    dirty = active.clone()  # [B, V]: rows written in the round before
+    while bool(live.any()):
+        full = (R.view(B, V, VW, 32) == act_words).all(-1)  # [B, V, VW]
+        pairs = aw & ~full & active[:, :, None]
+        pulled = torch.where(dirty[:, :, None], R[..., :V], R[..., :V] & dirty[:, None, :])
+        per_row = naw + pulled.sum(-1)  # [B, V]
+        ops += int((pairs.sum(-1) * per_row * live[:, None]).sum())
+        rounds += live
+        Rf = R[..., :V].float()
+        step = R | (torch.bmm(Rf, R.float()) > 0)
+        dirty = (step != R).any(-1)
+        live = live & dirty.any(-1)
+        R = step
+    elig = dgo.reference_depgraph_execute(adj, committed, active)[0]
+    ids = torch.arange(VW * 32, device=adj.device)
+    walked = (R[:, :, :V] & (ids[None, None, :V] <= ids[None, :V, None])).sum(-1)
+    ops += int((2 * n * naw[:, 0]).sum()) + int((walked * active).sum())
+    ops += int((elig.sum(-1) ** 2).sum())
+    return ops, int(rounds.max())
 
 
 # -- The six-pass grid vote (#6) and the port's microbench -------------------
@@ -2381,8 +2500,9 @@ def main() -> int:
     }))
 
     # -- 42. CRAQ and BPaxos kernels and tick splits -------------------------------
-    cd_rows = craq_dg_kernel_rows(ctx, main_launches, max_err, cd)
+    cd_rows, dg_model = craq_dg_kernel_rows(ctx, main_launches, max_err, cd)
     rows += cd_rows
+    log(json.dumps({"phase": "depgraph_schedule_model", **dg_model}))
     for row in rows:
         if row["name"] in repaired_timing:
             row["repaired_shapes"] = repaired_timing[row["name"]]

@@ -28,7 +28,9 @@ The outputs depend only on the closure, so any schedule that reaches the
 full closure gives the same bits. The JAX twin doubles float32 0/1
 matrices (exact while the counts stay below 2**24); the port's plain
 version runs Warshall's algorithm on the bit rows, word-wise ORs only:
-for each vertex ``k``, every row holding bit ``k`` ORs in row ``k``.
+for each vertex ``k``, every row holding bit ``k`` ORs in row ``k``. The
+CUDA kernel squares the bit rows of the active vertices in place to a
+fixed point instead (a few rounds, one barrier each; ``csrc/depgraph.cu``).
 :func:`oracle_execute` is the host-side sequential pointer walk (an
 iterative Tarjan plus condensation reach sets), a second check.
 
@@ -296,26 +298,45 @@ def oracle_execute(adj, committed, active):
 
 # Pointer slots of the kernel's argument block, in the order of the `Slot`
 # enum of csrc/depgraph.cu.
-_PTR_SLOTS = ("adj", "com", "act", "work", "o_elig", "o_order", "o_root")
+_PTR_SLOTS = ("adj", "com", "act", "work", "o_elig", "o_order", "o_root", "o_rounds")
 
 # Shared memory a graph may use before the kernel works from a global
-# scratch buffer instead (the default per-block limit, no opt-in).
-SHARED_BYTES = 48 * 1024
+# scratch buffer instead: the most a Hopper block may opt in to (227 KB).
+# The kernel takes no static shared memory.
+SHARED_BYTES = 232448
 
 
 def scratch_words(V: int) -> int:
     """32-bit words of per-graph working memory: the closure rows, the
-    active and active-uncommitted words, the closure sizes and the
-    eligibility flags."""
+    active, active-uncommitted and active-word lists and three dirty masks
+    (``VW`` words each), the active list and the closure sizes (``V``
+    each) and 32 warp counts."""
     VW = num_words(V)
-    return V * VW + 2 * VW + 2 * V
+    return V * VW + 6 * VW + 2 * V + 32
+
+
+def working_set(V: int) -> Tuple[int, bool]:
+    """``(bytes, shared)``: a graph's working memory, and whether it lies in
+    shared memory (else in a global scratch buffer). In shared memory up to
+    V = 1314."""
+    nbytes = 4 * scratch_words(V)
+    return nbytes, nbytes <= SHARED_BYTES
+
+
+def default_threads(V: int) -> int:
+    """Threads a block when the caller names none: enough for a graph's
+    (row, word) pairs up to 1024, at least 128."""
+    want = -(-V * num_words(V) // 32) * 32
+    return min(1024, max(128, want))
 
 
 def _depgraph_kernel(adj, committed, active, block: int = 0):
     """Check the tensors, allocate the outputs (and the global scratch
     where a graph's working memory exceeds :data:`SHARED_BYTES`) and pack
-    the launch; returns ``(launch, outputs)``. The launch loads the CUDA
-    library, so the checks run without a card.
+    the launch; returns ``(launch, outputs)``. ``launch.rounds`` is an int32
+    ``[B]`` tensor that each launch fills with its graphs' rounds of
+    squaring. The launch loads the CUDA library, so the checks run without
+    a card.
 
     ``adj`` may be a stride-0 broadcast of one ``[V, VW]`` graph over the
     batch (``expand``): the kernel takes the batch stride and reads the
@@ -341,7 +362,7 @@ def _depgraph_kernel(adj, committed, active, block: int = 0):
             raise TypeError(f"{_PLANE}: {name} has dtype {x.dtype}, want torch.bool")
         if not x.is_contiguous():
             raise ValueError(f"{_PLANE}: {name} is not contiguous")
-    threads = block if block > 0 else 1024
+    threads = block if block > 0 else default_threads(V)
     if not 32 <= threads <= 1024 or threads % 32:
         raise ValueError(
             f"{_PLANE}: block={threads} threads, want a multiple of 32 in 32-1024"
@@ -349,12 +370,13 @@ def _depgraph_kernel(adj, committed, active, block: int = 0):
     words = scratch_words(V)
     if B * words >= 2**31:
         raise ValueError(f"{_PLANE}: {B} graphs of V={V} exceed int32 offsets")
-    shared = 4 * words <= SHARED_BYTES
+    _, shared = working_set(V)
     dev = adj.device
     outs = dict(
         o_elig=torch.empty((B, V), dtype=torch.bool, device=dev),
         o_order=torch.empty((B, V), dtype=torch.int32, device=dev),
         o_root=torch.empty((B, V), dtype=torch.int32, device=dev),
+        o_rounds=torch.empty((B,), dtype=torch.int32, device=dev),
     )
     work = None if shared else torch.empty((B, words), dtype=torch.int32, device=dev)
     tensors = dict(adj=adj, com=committed, act=active, work=work, **outs)
@@ -375,6 +397,7 @@ def _depgraph_kernel(adj, committed, active, block: int = 0):
             )
         registry.count_launch(_PLANE)
 
+    launch.rounds = outs["o_rounds"]
     return launch, (outs["o_elig"], outs["o_order"], outs["o_root"])
 
 
@@ -382,9 +405,11 @@ def fused_depgraph_execute(adj, committed, active, block: int = 0):
     """:func:`reference_depgraph_execute` as one CUDA kernel on the card
     (the plain version on the CPU). Replaces the Pallas
     ``fused_depgraph_execute`` (frankenpaxos_tpu/ops/depgraph.py:282).
-    One CTA per graph: Warshall's closure on the bit rows, then the
-    eligibility, size, root and rank passes. Bit-exact: word-wise ORs and
-    integer counts only."""
+    One CTA per graph: the active vertices compacted, their bit rows
+    squared in place to the closure (one barrier a round), then the
+    eligibility, size, root and rank passes over the active list.
+    Bit-exact: word-wise ORs and integer counts only. A failed launch (or
+    shared-memory opt-in) raises; nothing falls back."""
     args = (adj, committed, active)
     if on_cpu(args):
         return reference_depgraph_execute(*args)
@@ -397,8 +422,9 @@ def prepared_launch(*args, **statics) -> tuple:
     """For timing the kernel apart from its wrapper: checks the tensors
     ``args`` (the wrapper's arguments), allocates the outputs and returns
     ``(launch, outputs)``; each ``launch()`` runs the kernel once into
-    those outputs (and counts as a launch). On CPU tensors it runs the
-    wrapper's checks alone: only the launch needs the card."""
+    those outputs (and counts as a launch), and ``launch.rounds`` with each
+    graph's rounds of squaring. On CPU tensors it runs the wrapper's checks
+    alone: only the launch needs the card."""
     return _depgraph_kernel(*args, **statics)
 
 
@@ -406,7 +432,7 @@ def prepared_launch(*args, **statics) -> tuple:
 # Example inputs: numpy arrays, from a seed.
 # ---------------------------------------------------------------------------
 
-EDGE_CASES = ("random", "all_committed", "empty", "one_cycle")
+EDGE_CASES = ("random", "all_committed", "empty", "one_cycle", "long_path")
 
 
 def example_depgraph_args(rng, B, V, case="random", density=0.12):
@@ -416,12 +442,17 @@ def example_depgraph_args(rng, B, V, case="random", density=0.12):
     GARBAGE in the padding lanes past ``V``, which must not reach the
     result. ``case``: ``"all_committed"`` (every vertex committed),
     ``"empty"`` (no vertex active), ``"one_cycle"`` (every active vertex
-    on one directed cycle: one SCC)."""
+    on one directed cycle: one SCC), ``"long_path"`` (every vertex active,
+    each depending on the one before it, a few uncommitted: the longest
+    path a window holds, the most rounds of squaring)."""
     ids = np.arange(V)
     bits = rng.random((B, V, V)) < density
     ring = (ids[None, :] == (ids[:, None] + 1) % 6) & (ids[:, None] < 6)
     if case == "one_cycle":
         bits = np.broadcast_to(ids[None, :] == (ids[:, None] + 1) % V, (B, V, V))
+        ring = np.zeros((V, V), bool)
+    elif case == "long_path":
+        bits = np.broadcast_to(ids[None, :] == ids[:, None] - 1, (B, V, V))
         ring = np.zeros((V, V), bool)
     adj = _np_pack(bits | ring[None])
     valid = _np_pack(np.ones((V,), bool))
@@ -436,6 +467,11 @@ def example_depgraph_args(rng, B, V, case="random", density=0.12):
     elif case == "one_cycle":
         active = np.ones((B, V), bool)
         committed = rng.random((B, V)) < 0.97
+    elif case == "long_path":
+        active = np.ones((B, V), bool)
+        committed = np.ones((B, V), bool)
+        for b in range(B):
+            committed[b, rng.choice(V, size=max(1, V // 20), replace=False)] = False
     return adj, committed, active
 
 
