@@ -13,9 +13,18 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
    MultiPaxos kernels at the flagship shape (3, 3334, 256), a ragged
    shape (3, 7, 16) and f=2 (5, 64, 64), the whole-tick kernel with
    aging on and off, the phase-1 kernel also on two edge inputs (every
-   slot a noop; vote-round ties with different values); the
+   slot a noop; vote-round ties with different values) and on each of
+   its two routes (``P1_ROUTE_CASES``: the vector route at the flagship
+   on the random, failover-like "sparse", noop and tie inputs and at
+   A = 5, A = 11 and W = 2048; the general kernel on misaligned copies,
+   A = 11 and W = 2048 among them, and at W = 12), each case on the
+   route it names (counted by the wrapper); the
    Compartmentalized grid-vote kernel at (R, C, NR, G, W) =
-   (2, 2, 3, 25000, 32), the ragged (2, 3, 2, 7, 16) and (3, 2, 3, 64, 64);
+   (2, 2, 3, 25000, 32), the ragged (2, 3, 2, 7, 16) and (3, 2, 3, 64, 64),
+   and on each of its routes (``CZ_ROUTE_CASES``: vector at W = 8, 16,
+   24, 32, 64, 256 and 1024 with up to four grid cells and replicas,
+   scalar on a misaligned copy, at W = 12 and with six grid cells or five
+   replicas, general at W = 1030 and 2048);
    the Mencius vote kernel at (L, W, A) = (3334, 32, 3), (33334, 32, 3),
    (7, 16, 3) and (64, 32, 5) on random, all-arrive-now and all-INF
    inputs; the Fast MultiPaxos vote kernel at (A, G, W) = (3, 3334, 32),
@@ -37,7 +46,7 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
    batcher per tick, latency 1-3, retry 16, no faults, reads off,
    through ``compartmentalized_batched.init_state`` / ``run_ticks`` for
    100 warm-up and 300 timed ticks; invariants, progress, and one
-   grid-vote launch per tick;
+   grid-vote launch per tick, every one on the vector route;
 9. the same shape with reads (rate 2, window 6) and faults (drop 0.05,
    jitter 1, crash 0.02, revive 0.2), 100 ticks: retries, drops and
    served reads;
@@ -49,7 +58,9 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
     and a Matchmaker reconfiguration every 100 ticks, through
     ``TpuSimTransport`` for 100 warm-up and 300 timed ticks: invariants,
     progress, elections, reconfigurations and GC'd configurations, one
-    whole-tick and two phase-1 launches per tick; then one host
+    whole-tick and two phase-1 launches per tick, every phase-1 launch on
+    the vector route; the profile logs the phase-1 kernel's device time a
+    launch (the Compartmentalized profile the grid vote's); then one host
     ``leader_change()`` and one ``reconfigure()`` and 20 more ticks;
 12. the flagship shape under a static fault plan (drop 0.05, jitter 1,
     crash 0.01 / revive 0.2, acceptor 2 cut from tick 20 to 60), 100
@@ -84,10 +95,21 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
 21-22. Mencius and Fast MultiPaxos card against CPU: ``analysis_config``
     with drop, dup, jitter, crash and a healing cut (Mencius also idle
     leaders and Phase2a drops), seed 0, 120 ticks, every State leaf equal;
-23. timing: each kernel and its plain version at its main shape, CUDA
-    events, median of 30 launches, beside the least time the card could
-    take for the bytes the kernel must move (the Mencius and Fast
-    MultiPaxos vote kernels at the 10k and 100k shapes);
+23. timing: each kernel and its plain version at its main shape beside
+    the least time the card could take for the bytes the kernel must
+    move (the Mencius and Fast MultiPaxos vote kernels at the 10k and
+    100k shapes). ``ms``: CUDA events around one call from Python, median
+    of 30 back to back: the host's enqueue plus the kernel, with a warm
+    L2. ``device_ms_cold`` / ``device_ms_cold_clean`` /
+    ``device_ms_warm``: the kernel alone on the device
+    (``harness/microbench.py`` ``device_times``: each launch after a 100
+    MB write that flushes the L2 and leaves it dirty, median of 30; the
+    same after a 100 MB read that leaves it clean; and 30 back to back,
+    all queued behind a spin so the host's enqueue is hidden). The share
+    of the bound is read from the first. #4 and #5 add
+    ``copy_yardstick_ms`` (and ``_clean``), the cold times of a torch
+    ``copy_`` of their bound's bytes, and #4 its cold times and bound on
+    the failover-like "sparse" inputs;
 24-31. Horizontal MultiPaxos at 3334 groups, its churn timelines, 33,334
     groups and a fault plan; Scalog at 256 and 10,000 shards and under a
     fault plan; both card against CPU; their kernels' rows and tick splits;
@@ -244,6 +266,36 @@ def time_ms(fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
+def device_times(launch) -> dict:
+    """``device_ms_cold``, ``device_ms_cold_clean`` and ``device_ms_warm``
+    of one launch (``harness/microbench.py`` ``device_times``: CUDA events
+    with the host's enqueue hidden, cold after an L2 flush that leaves
+    the cache dirty and after one that leaves it clean, warm back to
+    back)."""
+    from frankenpaxos_tpu_torch.harness.microbench import device_times as times
+
+    return times(launch)
+
+
+def copy_yardstick_ms(total_bytes: int) -> tuple:
+    """The cold device times, after the dirty and the clean flush, of a
+    torch ``copy_`` that reads and writes ``total_bytes`` in all: the
+    bandwidth this card attains on a plain copy, beside a kernel's
+    bound."""
+    src = torch.empty(total_bytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    times = device_times(lambda: dst.copy_(src))
+    return times["device_ms_cold"], times["device_ms_cold_clean"]
+
+
+def yardstick_keys(total_bytes: int, suffix: str = "") -> dict:
+    """A kernels-line row's ``copy_yardstick_ms`` and
+    ``copy_yardstick_ms_clean`` (with ``suffix``) for ``total_bytes``."""
+    dirty, clean = copy_yardstick_ms(total_bytes)
+    return {f"copy_yardstick_ms{suffix}": dirty,
+            f"copy_yardstick_ms_clean{suffix}": clean}
+
+
 def profile_ticks(run, sync, ticks: int, card: str, phase: str,
                   kernel: str = "") -> dict:
     """Device time by kernel over ``run(ticks)`` (torch.profiler), and
@@ -372,6 +424,15 @@ def only_launches(registry, plane: str, want: int, what: str) -> dict:
     ):
         raise AssertionError(f"{what} launches: {launches}")
     return launches
+
+
+def only_vector(registry, plane: str, want: int, what: str) -> dict:
+    """Raise unless every one of the ``want`` launches of ``plane`` in the
+    run took its vector route; returns the per-route counts."""
+    routes = dict(registry.ROUTE_LAUNCHES.get(plane, {}))
+    if routes != {"vector": want}:
+        raise AssertionError(f"{what}: {plane} routes {routes}, want {want} vector")
+    return routes
 
 
 def cards_equal(mod, prng, cfg, what: str, ticks: int = 120) -> int:
@@ -1023,6 +1084,7 @@ def _timed_vote_row(kern, plain, launch, args, statics, needed, moved, ops) -> d
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return {
         "ms": time_ms(launch),
+        **device_times(launch),
         "wrapper_ms": time_ms(lambda: kern(*args, **statics)),
         "plain_ms": time_ms(lambda: plain(*args, **statics), reps=10),
         "bound_ms": max(bytes_ms, ops_ms),
@@ -1667,9 +1729,10 @@ UF_KERNEL_RE = r"uf_(age|vote|counts|choose|replica|retry)"
 
 def grid_vote_needed(czo, args, st, shape) -> tuple:
     """The bytes the grid vote's inputs need, from the plain passes'
-    values on these inputs: ``(fused, passes)``, the fused kernel's and
-    each of the six passes' (by pass name). Every byte counts once, except
-    those a kernel reads only where it is used, as the kernels in
+    values on these inputs: ``(fused, passes)``, the fused kernel's
+    (``ops/compartmentalized.py`` ``grid_vote_needed_bytes``) and each of
+    the six passes' (by pass name). Every byte counts once, except those
+    a kernel reads only where it is used, as the kernels in
     csrc/compartmentalized.cu do: p2b_del at voting cells and p2b_lat
     where the vote is delivered; retry_del at the cells of timed-out
     slots and retry_lat where they re-send; rep_lat at newly chosen
@@ -1709,8 +1772,8 @@ def grid_vote_needed(czo, args, st, shape) -> tuple:
     passes["choose"] -= (cells - p2b_read) * 2 + slots - int((proposed & quorum).sum())
     passes["replica"] -= rep_skip
     passes["retry"] -= retry_skip + slots - int(due.sum())
-    fused_moved = nbytes(args) + nbytes(czo.reference_grid_vote(*args, **st))
-    return fused_moved - (vote_skip + retry_skip + rep_skip), passes
+    fused = czo.grid_vote_needed_bytes(args, czo.reference_grid_vote(*args, **st))
+    return fused, passes
 
 
 def check_unfused(ctx) -> int:
@@ -1812,6 +1875,7 @@ def time_unfused(ctx) -> dict:
         "kernels_per_launch": 6,
         "exact": True,
         "ms": ms,
+        **device_times(launch),
         "device_ms": device_us / 1e3 / calls,
         "wrapper_ms": time_ms(lambda: czo.unfused_grid_vote(*args, **st)),
         "plain_ms": time_ms(
@@ -1826,8 +1890,89 @@ def time_unfused(ctx) -> dict:
         "fused_bytes": nbytes(args) + nbytes(fused_outs),
         "fused_bound_bytes": fused_needed,
         "fused_ms": [fused_ms, fused_ms_again],
+        "fused_device_ms_cold": device_times(fused_launch)["device_ms_cold"],
         "library_ms": None,
     }
+
+
+# -- the routes of the phase-1 (#4) and grid-vote (#5) kernels --------------
+
+P1_PLANE = "multipaxos_p1_promise"
+CZ_PLANE = "compartmentalized_grid_vote"
+# (shape, case, misaligned, route): the vector route at the main shape on
+# every input case and at the repaired shapes (A = 11, W = 2048), the
+# general kernel (a thread a slot) on misaligned copies and at W % 8 != 0.
+P1_ROUTE_CASES = (
+    (FLAGSHIP, "random", False, "vector"),
+    (FLAGSHIP, "sparse", False, "vector"),
+    (FLAGSHIP, "noop", False, "vector"),
+    (FLAGSHIP, "ties", False, "vector"),
+    ((5, 64, 64), "random", False, "vector"),
+    ((11, 3334, 256), "random", False, "vector"),
+    ((3, 512, 2048), "random", False, "vector"),
+    (FLAGSHIP, "random", True, "general"),
+    (FLAGSHIP, "sparse", True, "general"),
+    ((3, 7, 12), "random", False, "general"),
+    ((3, 3334, 12), "ties", False, "general"),
+    ((11, 3334, 256), "random", True, "general"),
+    ((3, 512, 2048), "random", True, "general"),
+)
+CZ_ROUTE_CASES = (
+    (CZ_MAIN, False, "vector"),
+    ((2, 2, 3, 7, 16), False, "vector"),
+    ((1, 4, 4, 64, 64), False, "vector"),
+    ((2, 2, 3, 1000, 8), False, "vector"),
+    ((2, 2, 2, 700, 24), False, "vector"),
+    ((2, 2, 3, 700, 256), False, "vector"),
+    ((2, 2, 3, 300, 1024), False, "vector"),
+    (CZ_MAIN, True, "scalar"),
+    ((2, 2, 3, 2000, 12), False, "scalar"),
+    ((2, 3, 2, 7, 16), False, "scalar"),
+    ((3, 2, 5, 64, 64), False, "scalar"),
+    ((2, 2, 3, 512, 2048), False, "general"),
+    ((2, 3, 2, 7, 1030), False, "general"),
+)
+
+
+def check_routes(ctx) -> dict:
+    """Hold #4 and #5 against their plain versions, with a tolerance of
+    zero, on every route (P1_ROUTE_CASES, CZ_ROUTE_CASES): each case must
+    take the route it names, counted by the wrapper. Returns the largest
+    difference per plane (0)."""
+    registry, mp, czo = ctx["registry"], ctx["mp"], ctx["czo"]
+    err = {P1_PLANE: 0, CZ_PLANE: 0}
+    for shape, case, skew, route in P1_ROUTE_CASES:
+        rng = np.random.default_rng(sum(shape))
+        args = mp.to_torch(mp.example_p1_promise_args(rng, *shape, case=case), "cuda")
+        if skew:
+            args = registry.misaligned(args)
+        registry.reset_launches()
+        got = mp.fused_p1_promise(*args)
+        torch.cuda.synchronize()
+        took = registry.ROUTE_LAUNCHES.get(P1_PLANE, {})
+        label = f"{P1_PLANE}{shape} {case}{' misaligned' if skew else ''}"
+        if took != {route: 1}:
+            raise AssertionError(f"{label}: routes {took}, want {route}")
+        want = mp.reference_p1_promise(*args)
+        err[P1_PLANE] = max(err[P1_PLANE], outputs_equal(label, want, got))
+        log(f"exact: {label} ({route})")
+    st = dict(retry_timeout=16)
+    for shape, skew, route in CZ_ROUTE_CASES:
+        rng = np.random.default_rng(sum(shape))
+        args = registry.to_torch(czo.example_grid_vote_args(rng, *shape), "cuda")
+        if skew:
+            args = registry.misaligned(args)
+        registry.reset_launches()
+        got = czo.fused_grid_vote(*args, **st)
+        torch.cuda.synchronize()
+        took = registry.ROUTE_LAUNCHES.get(CZ_PLANE, {})
+        label = f"{CZ_PLANE}{shape}{' misaligned' if skew else ''}"
+        if took != {route: 1}:
+            raise AssertionError(f"{label}: routes {took}, want {route}")
+        want = czo.reference_grid_vote(*args, **st)
+        err[CZ_PLANE] = max(err[CZ_PLANE], outputs_equal(label, want, got))
+        log(f"exact: {label} ({route})")
+    return err
 
 
 def run_microbench(ctx) -> dict:
@@ -1958,6 +2103,8 @@ def main() -> int:
         log(f"exact: {label}")
     max_err.update(check_vote_kernels(registry, meo, fmo))
     max_err.update(check_hz_sc_kernels(registry, hzo, sco))
+    for plane, e in check_routes(dict(registry=registry, mp=mp, czo=czo)).items():
+        max_err[plane] = max(max_err[plane], e)
     ctx = dict(
         card=card, prng=prng, registry=registry, telemetry=telemetry_mod,
         FaultPlan=FaultPlan, mb=mb, fb=fb, meo=meo, fmo=fmo, hb=hb, sb=sb,
@@ -2088,6 +2235,7 @@ def main() -> int:
     registry.reset_launches()
     secs = sim.timed_run(300)
     launches = only_launches(registry, cz_plane, 300, "compartmentalized")
+    cz_routes = only_vector(registry, cz_plane, 300, "compartmentalized")
     sim.assert_invariants("compartmentalized")
     committed = int(sim.state.committed) - c0
     writes = int(sim.state.writes_done) - w0
@@ -2108,7 +2256,9 @@ def main() -> int:
         "latency_mean_ticks": cz_stats["latency_mean_ticks"],
         "launches": launches,
     }))
-    log(json.dumps(profile_ticks(sim.run, sim.sync, 20, card, "cz_profile")))
+    log(json.dumps(profile_ticks(
+        sim.run, sim.sync, 20, card, "cz_profile", kernel="grid_vote"
+    )))
     del sim
     torch.cuda.empty_cache()
 
@@ -2124,6 +2274,7 @@ def main() -> int:
     launches = dict(registry.LAUNCHES)
     if launches[cz_plane] != 100:
         raise AssertionError(f"compartmentalized faults launches: {launches}")
+    only_vector(registry, cz_plane, 100, "compartmentalized faults+reads")
     sim.assert_invariants("compartmentalized faults+reads")
     tel = telemetry_mod.summary(sim.state.telemetry)
     reads = int(sim.state.reads_done)
@@ -2178,6 +2329,7 @@ def main() -> int:
         n for k, n in launches.items() if k not in want
     ):
         raise AssertionError(f"failover launches: {launches}")
+    p1_routes = only_vector(registry, p1_plane, 600, "failover")
     assert_invariants(tr, "failover")
     stats = tr.stats()
     committed = tr.committed() - c0
@@ -2202,7 +2354,8 @@ def main() -> int:
         "launches": launches,
     }))
     log(json.dumps(profile_ticks(
-        tr.run, tr.block_until_ready, 20, card, "failover_profile"
+        tr.run, tr.block_until_ready, 20, card, "failover_profile",
+        kernel="p1_promise",
     )))
     c1 = tr.committed()
     tr.leader_change()
@@ -2357,24 +2510,9 @@ def main() -> int:
         args, st = plane_args(mp, which, FLAGSHIP, seed=7, age=True)
         launch, outs = mp.prepared_launch(plane, *args, **st)
         moved = nbytes(args) + nbytes(outs)
-        needed = moved
-        if which == "p1":
-            # The phase-1 kernel reads the votes and latencies only of
-            # in-flight slots (the winning vote's value only where one
-            # is visible), and the carried value, send tick and clocks
-            # only of the others: count what these inputs need.
-            status, vr, _, _, _, _, _, mask, learned, _, _ = args
-            in_flight = (status == mp.PROPOSED) & mask[:, None]
-            n_in = int(in_flight.sum())
-            n_voted = int((in_flight & (
-                (learned[:, :, None] & (vr >= 0)).any(dim=0)
-            )).sum())
-            needed = (
-                status.numel() + mask.numel() + learned.numel()
-                + n_in * A * 4 + n_voted * 4
-                + (G * W - n_in) * (8 + A * 4)
-                + nbytes(outs)
-            )
+        # The phase-1 plane needs only part of its inputs: count what
+        # these inputs need (ops/multipaxos.py p1_promise_needed_bytes).
+        needed = mp.p1_promise_needed_bytes(args) if which == "p1" else moved
         per_acc, per_slot = ops_per[which]
         ops = A * G * W * per_acc + G * W * per_slot
         bytes_ms = needed / HBM_BYTES_PER_S * 1e3
@@ -2382,6 +2520,7 @@ def main() -> int:
         # The kernel alone, then the whole wrapper (input checks and
         # output allocation on the host, then the launch).
         ms = time_ms(launch)
+        dev_times = device_times(launch)
         wrapper_ms = time_ms(lambda: kern(*args, **st))
         plain_ms = time_ms(lambda: plain(*args, **st), reps=10)
         rows.append({
@@ -2394,6 +2533,7 @@ def main() -> int:
             "exact": True,
             "max_abs_err": max_err[plane],
             "ms": ms,
+            **dev_times,
             "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -2402,8 +2542,26 @@ def main() -> int:
             "library_ms": None,
         })
         if which == "p1":
-            rows[-1]["bound_bytes"] = needed
-            rows[-1]["in_flight_share"] = n_in / (G * W)
+            status, _, _, _, _, _, _, mask = args[:8]
+            in_flight = (status == mp.PROPOSED) & mask[:, None]
+            # The failover path's inputs: about 1% of the groups masked.
+            sparse = mp.to_torch(mp.example_p1_promise_args(
+                np.random.default_rng(7), A, G, W, case="sparse"), "cuda")
+            sparse_launch, _ = mp.prepared_launch(plane, *sparse)
+            sparse_needed = mp.p1_promise_needed_bytes(sparse)
+            sparse_times = device_times(sparse_launch)
+            rows[-1].update({
+                "device_ms_cold_sparse": sparse_times["device_ms_cold"],
+                "device_ms_cold_clean_sparse": sparse_times["device_ms_cold_clean"],
+                **yardstick_keys(needed),
+                **yardstick_keys(sparse_needed, "_sparse"),
+                "bound_bytes": needed,
+                "in_flight_share": int(in_flight.sum()) / (G * W),
+                "launch_route": launch.route,
+                "route_launches": p1_routes,
+                "bound_ms_sparse": sparse_needed / HBM_BYTES_PER_S * 1e3,
+                "bound_bytes_sparse": sparse_needed,
+            })
 
     # The grid-vote kernel at the Compartmentalized main shape. Its bound
     # counts the bytes these inputs need: every input and output once,
@@ -2423,6 +2581,7 @@ def main() -> int:
     bytes_ms = needed / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     ms = time_ms(launch)
+    dev_times = device_times(launch)
     wrapper_ms = time_ms(lambda: czo.fused_grid_vote(*args, **st))
     plain_ms = time_ms(lambda: czo.reference_grid_vote(*args, **st), reps=10)
     rows.append({
@@ -2435,12 +2594,16 @@ def main() -> int:
         "exact": True,
         "max_abs_err": max_err[cz_plane],
         "ms": ms,
+        **dev_times,
         "wrapper_ms": wrapper_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": moved,
         "bound_bytes": needed,
+        **yardstick_keys(needed),
+        "launch_route": launch.route,
+        "route_launches": cz_routes,
         "library_ms": None,
     })
     cz_sweep_ms = time_ms(
@@ -2522,6 +2685,17 @@ def main() -> int:
     }))
 
     rows.append(uf_row)
+    # A kernel cannot beat the least time of its work from a cold L2: a
+    # share above 1 means a wrong byte count or a wrong timing.
+    for row in rows:
+        row["share_of_bound_cold"] = row["bound_ms"] / row["device_ms_cold"]
+    log(json.dumps({
+        "phase": "share_of_bound_cold", "card": card,
+        **{row["name"]: row["share_of_bound_cold"] for row in rows},
+    }))
+    over = [row["name"] for row in rows if row["share_of_bound_cold"] > 1]
+    if over:
+        raise AssertionError(f"cold device time under the bound: {over}")
 
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))

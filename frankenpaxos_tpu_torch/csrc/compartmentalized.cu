@@ -35,13 +35,19 @@
 // masked per thread; masked threads still reach the barrier. For W > 1024
 // a general kernel runs one CTA per group with a block-stride loop over
 // the W slots and the same per-slot body; its per-replica min over W is a
-// full-warp reduction at every step, exact in any order.
+// full-warp reduction at every step, exact in any order. Where its route
+// function allows (ops/compartmentalized.py grid_vote_route), the wrapper
+// takes the vector route instead (grid_vote_vec, below: 8 slots a thread,
+// 16-byte loads, five trips to memory); these two kernels are the scalar
+// and general routes.
 //
 // Bound. A few integer ops per byte: bound by the bytes moved. At the main
 // shape (R, C, NR, G, W) = (2, 2, 3, 25000, 32), with every input read
 // once: per grid cell 18 B (p2a, p2b in and out at 2 B, two uint8 masks,
 // two int32 latencies), per replica cell 8 B, per slot 21 B: about 117 B
-// per ring slot, ~94 MB a launch, ~28 us at 3.35 TB/s.
+// per ring slot, ~94 MB a launch, ~28 us at 3.35 TB/s; the masks and
+// latencies are needed only where used (57.7 MB on the random inputs of
+// chip_smoke.py, ~17 us: ops/compartmentalized.py grid_vote_needed_bytes).
 
 #include <climits>
 
@@ -208,6 +214,302 @@ __global__ void grid_vote_any(const Args a) {
   if (threadIdx.x == 0) store_watermarks(a, g, s_gap, 1);
 }
 
+// ---------------------------------------------------------------------------
+// The vector route (W % 8 == 0, W <= 1024, R * C <= 4, NR <= 4, every
+// plane 16-byte aligned). A thread owns 8 consecutive slots of one group:
+// blockDim = (W / 8, gpb). Its memory traffic goes in a few trips, each a
+// batch of independent loads that overlap:
+//   1. unconditional: its clocks of every grid cell (16 bytes each), its
+//      send ticks, 8 bytes of status and of proxy liveness, the group's
+//      ring bounds;
+//   2. p2b_del at the cells where one of its slots votes;
+//   3. p2b_lat where a vote is delivered;
+//   4. its replica clocks, rep_lat where a slot is newly chosen, retry_del
+//      where one times out;
+//   5. only where a re-send lands: retry_lat, and the aged p2a row it
+//      overwrites (stored after trip 1, read back).
+// A sparse read takes the thread's 8-lane row of its plane (a latency row
+// is one 32-byte sector: two 16-byte loads, either half read only where a
+// lane of it needs the value): the same sectors from device memory as a
+// load per lane, a few instructions instead of eight. The lane work runs
+// two int16 lanes a 32-bit word with per-halfword SIMD ops, lane masks in
+// the same layout (0xffff where set). The per-replica first gap is the
+// thread's min over its 8 slots, then (kShfl: W / 8 a power of two that
+// divides 32, the block's warps full) a shuffle-min over the group's W / 8
+// lanes, else one shared atomic per thread and a barrier.
+// ---------------------------------------------------------------------------
+
+// Grid cells, and replicas, whose rows a thread holds (the route's limit).
+constexpr int kMaxRows = 4;
+
+template <bool kShfl>
+__global__ void __launch_bounds__(256, 2) grid_vote_vec(const Args a) {
+  extern __shared__ int s_gap[];  // [NR][gpb], without kShfl only
+  const int per_group = a.W / 8;
+  const int x = threadIdx.x;
+  const int gi = threadIdx.y;
+  const int g = blockIdx.x * a.gpb + gi;
+  const bool valid = g < a.G;
+  const size_t GW = static_cast<size_t>(a.G) * a.W;
+  const int w0 = x * 8;
+  const size_t gw = static_cast<size_t>(g) * a.W + w0;
+  const int RC = a.R * a.C;
+  if (!kShfl) {
+    if (x == 0) {
+      for (int n = 0; n < a.NR; ++n) s_gap[n * a.gpb + gi] = INT_MAX;
+    }
+    __syncthreads();
+  }
+
+  // Trip 1; the aged p2a is stored at once.
+  int head = 0, next = 0;
+  V8 st, alive;
+  st.u = alive.u = make_uint2(0, 0);
+  V16 ls[2], pa[kMaxRows], pb[kMaxRows];
+  ls[0].u = ls[1].u = make_uint4(0, 0, 0, 0);
+  if (valid) {
+    head = in<int>(a, HEAD)[g];
+    next = in<int>(a, NEXT)[g];
+    st = ld8(in<int8_t>(a, STATUS) + gw);
+    alive = ld8(in<uint8_t>(a, ALIVE) + gw);
+    ls[0] = ld16(in<int>(a, LS) + gw);
+    ls[1] = ld16(in<int>(a, LS) + gw + 4);
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      if (j < RC) {
+        pa[j] = ld16(in<int16_t>(a, P2A) + j * GW + gw);
+        pb[j] = ld16(in<int16_t>(a, P2B) + j * GW + gw);
+      }
+    }
+  }
+  unsigned prop[4], live_proxy[4], due[4];
+  {
+    V8 p;
+    p.u.x = __vcmpeq4(st.u.x, 0x01010101u);  // kProposed
+    p.u.y = __vcmpeq4(st.u.y, 0x01010101u);
+    byte_masks(prop, p);
+    byte_masks(live_proxy, alive);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool d0 = wsub(a.t, lane32(ls, 2 * k)) >= a.retry_timeout;
+    const bool d1 = wsub(a.t, lane32(ls, 2 * k + 1)) >= a.retry_timeout;
+    due[k] = (d0 ? 0x0000ffffu : 0u) | (d1 ? 0xffff0000u : 0u);
+    due[k] &= prop[k] & live_proxy[k];
+    if (!valid) due[k] = 0;
+  }
+  bool vote_any[kMaxRows];
+  unsigned votes[4] = {0, 0, 0, 0}, dropped[4] = {0, 0, 0, 0};
+  unsigned vote[kMaxRows][4];
+#pragma unroll
+  for (int j = 0; j < kMaxRows; ++j) {
+    vote_any[j] = false;
+    if (!valid || j >= RC) continue;
+    unsigned o = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      pa[j].w[k] = age2(pa[j].w[k]);
+      pb[j].w[k] = age2(pb[j].w[k]);
+      vote[j][k] = __vcmpeq2(pa[j].w[k], 0u);
+      votes[k] += vote[j][k] & 0x00010001u;
+      o |= vote[j][k];
+    }
+    vote_any[j] = o != 0;
+    st16(out<int16_t>(a, O_P2A) + j * GW + gw, pa[j]);
+  }
+
+  // Trip 2: p2b_del where a slot votes, a byte at each voting slot (one
+  // 8-byte load of the cell's 8 bytes lost to it on the card, PERF.md).
+  unsigned del[kMaxRows][4];
+#pragma unroll
+  for (int j = 0; j < kMaxRows; ++j) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) del[j][k] = 0;
+    if (!valid || j >= RC) continue;
+    const size_t i = j * GW + gw;
+    if (vote_any[j]) {
+      V8 d;
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        d.ub[l] = (vote[j][l >> 1] >> (16 * (l & 1)) & 1u)
+                      ? in<uint8_t>(a, P2B_DEL)[i + l] : 0;
+      }
+      byte_masks(del[j], d);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxRows; ++j) {
+    if (!valid || j >= RC) continue;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      del[j][k] &= vote[j][k];
+      dropped[k] += (vote[j][k] & ~del[j][k]) & 0x00010001u;
+    }
+  }
+
+  // Trip 3: Phase2b min-writes, the vote counts, the every-row quorum.
+  unsigned quorum[4] = {0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu};
+  {
+    V16 lat[kMaxRows][2];
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      if (valid && j < RC) load_masked(lat[j], in<int>(a, P2B_LAT) + j * GW + gw, del[j]);
+    }
+    unsigned row_any[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      if (!valid || j >= RC) continue;
+      const int c = j % a.C;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (c == 0) row_any[k] = 0;
+        const unsigned b = pb[j].w[k];
+        pb[j].w[k] = sel2(del[j][k], __vmins2(b, low_halves(lat[j], k)), b);
+        row_any[k] |= __vcmples2(pb[j].w[k], 0u);
+        if (c == a.C - 1) quorum[k] &= row_any[k];
+      }
+      st16(out<int16_t>(a, O_P2B) + j * GW + gw, pb[j]);
+    }
+  }
+
+  // Chosen: PROPOSED, every row voted, the proxy alive. A slot that may
+  // retry and is not chosen times out.
+  unsigned newly[4], chosen[4], timed[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    newly[k] = valid ? prop[k] & quorum[k] & live_proxy[k] : 0u;
+    timed[k] = due[k] & ~newly[k];
+  }
+  {
+    const V8 nb = mask_bytes(newly);
+    st.u.x = (st.u.x & ~(nb.u.x * 0xffu)) | (nb.u.x * kChosen);
+    st.u.y = (st.u.y & ~(nb.u.y * 0xffu)) | (nb.u.y * kChosen);
+    V8 c;
+    c.u.x = __vcmpeq4(st.u.x, 0x02020202u);  // kChosen
+    c.u.y = __vcmpeq4(st.u.y, 0x02020202u);
+    byte_masks(chosen, c);
+  }
+
+  // Trip 4: the replica clocks, rep_lat where a slot is newly chosen,
+  // retry_del where one times out. The commit broadcast and each
+  // replica's first gap of the arrived prefix (the live range tests the
+  // ring position, as in JAX).
+  const bool timed_any = any_lane(timed, 0, 4);
+  V8 rdel[kMaxRows];
+  {
+    V16 rp[kMaxRows], rl[kMaxRows][2];
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      rdel[j].u = make_uint2(0, 0);
+      if (!valid) continue;
+      if (j < a.NR) {
+        rp[j] = ld16(in<int16_t>(a, REP) + j * GW + gw);
+        load_masked(rl[j], in<int>(a, REP_LAT) + j * GW + gw, newly);
+      }
+      if (timed_any && j < RC) rdel[j] = ld8(in<uint8_t>(a, RETRY_DEL) + j * GW + gw);
+    }
+    // Per lane pair: the ring ordinal, and whether the position is live.
+    const int span = wsub(next, head);
+    const int ord0 = floor_mod(wsub(w0, head), a.W);
+    unsigned ord[4], live[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int o0 = ord0 + 2 * k, o1 = o0 + 1;
+      o0 = o0 < a.W ? o0 : o0 - a.W;
+      o1 = o1 < a.W ? o1 : o1 - a.W;
+      ord[k] = static_cast<unsigned>(o0) | (static_cast<unsigned>(o1) << 16);
+      live[k] = (w0 + 2 * k < span ? 0x0000ffffu : 0u) |
+                (w0 + 2 * k + 1 < span ? 0xffff0000u : 0u);
+    }
+    const unsigned wide = static_cast<unsigned>(a.W) * 0x00010001u;
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      if (j >= a.NR) continue;
+      int gap = a.W;
+      if (valid) {
+        unsigned m = 0xffffffffu;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const unsigned r = sel2(newly[k], low_halves(rl[j], k), age2(rp[j].w[k]));
+          rp[j].w[k] = r;
+          const unsigned ready = chosen[k] & __vcmples2(r, 0u) & live[k];
+          m = __vminu2(m, sel2(ready, wide, ord[k]));
+        }
+        const int lo = static_cast<int>(m & 0xffffu), hi = static_cast<int>(m >> 16);
+        gap = lo < hi ? lo : hi;
+        st16(out<int16_t>(a, O_REP) + j * GW + gw, rp[j]);
+      }
+      if (kShfl) {
+        for (int off = per_group >> 1; off > 0; off >>= 1) {
+          const int o = __shfl_xor_sync(0xffffffffu, gap, off);
+          gap = o < gap ? o : gap;
+        }
+        if (valid && x == 0) {
+          const size_t ng = static_cast<size_t>(j) * a.G + g;
+          const int mark = wadd(head, gap);
+          const int old = in<int>(a, REP_EXEC)[ng];
+          out<int>(a, O_REP_EXEC)[ng] = old > mark ? old : mark;
+        }
+      } else {
+        atomicMin(&s_gap[j * a.gpb + gi], gap);
+      }
+    }
+  }
+
+  // Trip 5: a timed-out slot's re-send overwrites the aged p2a where it
+  // lands (the row stored after trip 1, read back), with retry_lat.
+  if (timed_any) {
+    V16 cur[kMaxRows], tl[kMaxRows][2];
+    unsigned resend[kMaxRows][4];
+    bool hit[kMaxRows];
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      hit[j] = false;
+      if (j >= RC) continue;
+      byte_masks(resend[j], rdel[j]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) resend[j][k] &= timed[k];
+      hit[j] = any_lane(resend[j], 0, 4);
+      if (!hit[j]) continue;
+      cur[j] = ld16(out<int16_t>(a, O_P2A) + j * GW + gw);
+      load_masked(tl[j], in<int>(a, RETRY_LAT) + j * GW + gw, resend[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      if (!hit[j]) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        cur[j].w[k] = sel2(resend[j][k], low_halves(tl[j], k), cur[j].w[k]);
+      }
+      st16(out<int16_t>(a, O_P2A) + j * GW + gw, cur[j]);
+    }
+  }
+
+  if (valid) {
+    V16 vo[2], dr[2];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) {
+      const int sh = 16 * (l & 1);
+      if (timed[l >> 1] >> sh & 1u) lane32(ls, l) = a.t;
+      lane32(vo, l) = static_cast<int>(votes[l >> 1] >> sh & 0xffffu);
+      lane32(dr, l) = static_cast<int>(dropped[l >> 1] >> sh & 0xffffu);
+    }
+    st8(out<int8_t>(a, O_STATUS) + gw, st);
+    st16(out<int>(a, O_LS) + gw, ls[0]);
+    st16(out<int>(a, O_LS) + gw + 4, ls[1]);
+    st8(out<uint8_t>(a, O_NEWLY) + gw, mask_bytes(newly));
+    st8(out<uint8_t>(a, O_TIMED) + gw, mask_bytes(timed));
+    st16(out<int>(a, O_VOTES) + gw, vo[0]);
+    st16(out<int>(a, O_VOTES) + gw + 4, vo[1]);
+    st16(out<int>(a, O_DROPPED) + gw, dr[0]);
+    st16(out<int>(a, O_DROPPED) + gw + 4, dr[1]);
+  }
+  if (!kShfl) {
+    __syncthreads();
+    if (valid && x == 0) store_watermarks(a, g, s_gap + gi, a.gpb);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -216,10 +518,14 @@ extern "C" {
 int fpx_cz_num_slots() { return NUM_SLOTS; }
 
 // Launch the grid-vote kernel. ptrs holds NUM_SLOTS device pointers;
-// ints = {R, C, NR, G, W, t, retry_timeout, gpb}. W * gpb <= 1024 runs one
-// thread per slot, any larger W the general kernel (one CTA per group).
-// Returns the CUDA error of the launch (0 = launched). Does not
-// synchronise.
+// ints = {R, C, NR, G, W, t, retry_timeout, gpb, route}, the route the
+// wrapper chose (ops/compartmentalized.py grid_vote_route): 0 scalar (one
+// thread per slot, W * gpb <= 1024), 1 general (one CTA per group, any W),
+// 2 vector (8 slots a thread, gpb groups of W / 8 threads a CTA, at most
+// 256 threads). Checked again here, and refused where its conditions do
+// not hold (the vector route: W % 8 == 0, R * C and NR at most kMaxRows,
+// every pointer 16-byte aligned). Returns the CUDA error of the launch (0
+// = launched). Does not synchronise.
 int fpx_cz_launch(void* const* ptrs, const int* ints, void* stream) {
   Args a;
   for (int i = 0; i < NUM_SLOTS; ++i) a.p[i] = ptrs[i];
@@ -237,16 +543,44 @@ int fpx_cz_launch(void* const* ptrs, const int* ints, void* stream) {
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t shmem = sizeof(int) * static_cast<size_t>(a.NR) * a.gpb;
-  if (static_cast<long long>(a.W) * a.gpb <= 1024 && shmem <= 48 * 1024) {
-    const dim3 block(a.W, a.gpb);
-    const dim3 grid((a.G + a.gpb - 1) / a.gpb);
-    grid_vote_kernel<<<grid, block, shmem, st>>>(a);
-  } else {
-    const size_t shmem_any = sizeof(int) * static_cast<size_t>(a.NR);
-    if (shmem_any > 48 * 1024) return cudaErrorInvalidValue;
-    int threads = ((a.W + 31) / 32) * 32;
-    if (threads > 256) threads = 256;
-    grid_vote_any<<<a.G, threads, shmem_any, st>>>(a);
+  const dim3 grid((a.G + a.gpb - 1) / a.gpb);
+  switch (ints[8]) {
+    case 0: {
+      if (static_cast<long long>(a.W) * a.gpb > 1024 || shmem > 48 * 1024) {
+        return cudaErrorInvalidValue;
+      }
+      grid_vote_kernel<<<grid, dim3(a.W, a.gpb), shmem, st>>>(a);
+      break;
+    }
+    case 1: {
+      const size_t shmem_any = sizeof(int) * static_cast<size_t>(a.NR);
+      if (shmem_any > 48 * 1024) return cudaErrorInvalidValue;
+      int threads = ((a.W + 31) / 32) * 32;
+      if (threads > 256) threads = 256;
+      grid_vote_any<<<a.G, threads, shmem_any, st>>>(a);
+      break;
+    }
+    case 2: {
+      const int per_group = a.W / 8;
+      const int threads = per_group * a.gpb;
+      if (a.W % 8 != 0 || a.W > 1024 || threads > 256 ||
+          a.R * a.C > kMaxRows || a.NR > kMaxRows ||
+          !all_aligned16(a.p, NUM_SLOTS)) {
+        return cudaErrorInvalidValue;
+      }
+      const bool shfl = (per_group & (per_group - 1)) == 0 &&
+                        per_group <= 32 && threads % 32 == 0;
+      const dim3 block(per_group, a.gpb);
+      if (shfl) {
+        grid_vote_vec<true><<<grid, block, 0, st>>>(a);
+      } else {
+        if (shmem > 48 * 1024) return cudaErrorInvalidValue;
+        grid_vote_vec<false><<<grid, block, shmem, st>>>(a);
+      }
+      break;
+    }
+    default:
+      return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }

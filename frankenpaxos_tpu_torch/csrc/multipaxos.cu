@@ -16,8 +16,13 @@
 //                       pallas_call at :447): phase-1 safe values and the
 //                       full-group re-send for elections, reconfiguration
 //                       installs and host leader changes. Bound by bytes
-//                       (at most 55.5 MB at the flagship shape, ~17 us);
-//                       each slot reads only the inputs its branch needs.
+//                       (33.6 MB needed at the flagship shape on random
+//                       inputs, ~10 us; 55.5 MB if every input is read).
+//                       Two routes (the wrapper's choice, checked here):
+//                       the vector route (p1_promise_vec: 8 slots a
+//                       thread, the group's mask read once, 16-byte
+//                       loads) and the general kernel (p1_promise_any: a
+//                       thread a slot, any A and W).
 //
 // Each computes exactly what its plain PyTorch twin in
 // frankenpaxos_tpu_torch/ops/multipaxos.py computes, bit for bit (it is
@@ -497,9 +502,8 @@ __global__ void dispatch_kernel(const Args a) {
 // from: the votes, learned bits and latencies for in-flight slots, the
 // carried slot value, send tick and clocks for the rest.
 // ---------------------------------------------------------------------------
-template <int AT>
 __device__ __forceinline__ void p1_slot(const Args& a, int g, size_t gw) {
-  const int A = AT > 0 ? AT : a.A;
+  const int A = a.A;
   const size_t GW = static_cast<size_t>(a.G) * a.W;
   const bool in_flight = in<int8_t>(a, STATUS)[gw] == kProposed &&
                          in<uint8_t>(a, MASK)[g] != 0;
@@ -532,11 +536,163 @@ __device__ __forceinline__ void p1_slot(const Args& a, int g, size_t gw) {
   }
 }
 
-template <int A>
-__global__ void p1_promise_kernel(const Args a) {
-  const Thread th = thread_of(a);
-  if (!th.valid) return;
-  p1_slot<A>(a, th.g, th.gw);
+// The vector route (W % 8 == 0, every plane 16-byte aligned): a thread
+// owns 8 consecutive slots of one group and reads its mask once, so the
+// branch is the same for the whole group. The acceptor rows go in
+// batches of kP1Batch, every load of a batch issued before its first use.
+constexpr int kP1Batch = 3;
+
+// An unmasked group copies through: 16-byte loads and stores of its
+// clocks (8 int16 a row), slot values and send ticks (8 int32); it never
+// reads the status.
+__device__ __forceinline__ void p1_copy_chunk(const Args& a, size_t GW,
+                                              size_t gw) {
+  const V16 sv0 = ld16(in<int>(a, SV) + gw), sv1 = ld16(in<int>(a, SV) + gw + 4);
+  const V16 ls0 = ld16(in<int>(a, LS) + gw), ls1 = ld16(in<int>(a, LS) + gw + 4);
+  for (int k0 = 0; k0 < a.A; k0 += kP1Batch) {
+    V16 pa[kP1Batch], pb[kP1Batch];
+#pragma unroll
+    for (int j = 0; j < kP1Batch; ++j) {
+      if (k0 + j < a.A) {
+        const size_t i = (k0 + j) * GW + gw;
+        pa[j] = ld16(in<int16_t>(a, P2A) + i);
+        pb[j] = ld16(in<int16_t>(a, P2B) + i);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kP1Batch; ++j) {
+      if (k0 + j < a.A) {
+        const size_t i = (k0 + j) * GW + gw;
+        st16(out<int16_t>(a, O_P2A) + i, pa[j]);
+        st16(out<int16_t>(a, O_P2B) + i, pb[j]);
+      }
+    }
+  }
+  st16(out<int>(a, O_SV) + gw, sv0);
+  st16(out<int>(a, O_SV) + gw + 4, sv1);
+  st16(out<int>(a, O_LS) + gw, ls0);
+  st16(out<int>(a, O_LS) + gw + 4, ls1);
+}
+
+// A masked group: the per-slot logic of p1_slot on 8 slots at once, two
+// int16 lanes a word with per-halfword SIMD ops (common.cuh). Its rows are
+// read unconditionally, each batch in one go with the status, so that a
+// batch costs one trip to memory: the carried clocks, values and send
+// ticks, the re-send latencies and the vote rounds. The winning vote's
+// value is then read only from the rows of acceptors that win a slot, only
+// the 16-byte half that holds a winning lane.
+__device__ __forceinline__ void p1_repair_chunk(const Args& a, size_t GW,
+                                                int g, size_t gw) {
+  const V8 st = ld8(in<int8_t>(a, STATUS) + gw);
+  V16 sv[2], ls[2];
+  sv[0] = ld16(in<int>(a, SV) + gw);
+  sv[1] = ld16(in<int>(a, SV) + gw + 4);
+  ls[0] = ld16(in<int>(a, LS) + gw);
+  ls[1] = ld16(in<int>(a, LS) + gw + 4);
+  // The first maximum of the learned acceptors' vote rounds (strict >)
+  // and its acceptor, a lane pair a word.
+  unsigned fly[4], best_r[4], best_k[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    best_r[k] = 0xffffffffu;  // -1, -1
+    best_k[k] = 0;
+  }
+  for (int k0 = 0; k0 < a.A; k0 += kP1Batch) {
+    V16 pa[kP1Batch], pb[kP1Batch], lt[kP1Batch], vr[kP1Batch];
+    bool use[kP1Batch];
+#pragma unroll
+    for (int j = 0; j < kP1Batch; ++j) {
+      const int k = k0 + j;
+      use[j] = false;
+      if (k < a.A) {
+        const size_t i = k * GW + gw;
+        pa[j] = ld16(in<int16_t>(a, P2A) + i);
+        pb[j] = ld16(in<int16_t>(a, P2B) + i);
+        lt[j] = ld16(in<int16_t>(a, P1_LAT) + i);
+        vr[j] = ld16(in<int16_t>(a, VR) + i);
+        use[j] = in<uint8_t>(a, LEARNED)[static_cast<size_t>(k) * a.G + g] != 0;
+      }
+    }
+    V8 p;
+    p.u.x = __vcmpeq4(st.u.x, 0x01010101u);  // kProposed
+    p.u.y = __vcmpeq4(st.u.y, 0x01010101u);
+    byte_masks(fly, p);
+#pragma unroll
+    for (int j = 0; j < kP1Batch; ++j) {
+      if (k0 + j >= a.A) continue;
+      const unsigned kj = static_cast<unsigned>(k0 + j) * 0x00010001u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (use[j]) {
+          const unsigned up = __vcmpgts2(vr[j].w[k], best_r[k]);
+          best_r[k] = sel2(up, vr[j].w[k], best_r[k]);
+          best_k[k] = sel2(up, kj, best_k[k]);
+        }
+        // The re-send: a fresh latency, the pending Phase2b cleared.
+        pa[j].w[k] = sel2(fly[k], lt[j].w[k], pa[j].w[k]);
+        pb[j].w[k] = sel2(fly[k], 0x7fff7fffu, pb[j].w[k]);  // INF16
+      }
+      const size_t i = (k0 + j) * GW + gw;
+      st16(out<int16_t>(a, O_P2A) + i, pa[j]);
+      st16(out<int16_t>(a, O_P2B) + i, pb[j]);
+    }
+  }
+  // Safe values: the winner's vote value, or a noop where no learned
+  // acceptor voted.
+  unsigned voted[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) voted[k] = fly[k] & __vcmpges2(best_r[k], 0u);
+  for (int k0 = 0; k0 < a.A; k0 += kP1Batch) {
+    unsigned win[kP1Batch][4];
+    V16 vv[kP1Batch][2];
+#pragma unroll
+    for (int j = 0; j < kP1Batch; ++j) {
+      const unsigned kj = static_cast<unsigned>(k0 + j) * 0x00010001u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        win[j][k] = k0 + j < a.A ? voted[k] & __vcmpeq2(best_k[k], kj) : 0u;
+      }
+      load_masked(vv[j], in<int>(a, VV) + (k0 + j) * GW + gw, win[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kP1Batch; ++j) {
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        const unsigned m = lane_mask32(win[j][l >> 1], l);
+        lane32(sv, l) = static_cast<int>(
+            (static_cast<unsigned>(lane32(vv[j], l)) & m) |
+            (static_cast<unsigned>(lane32(sv, l)) & ~m));
+      }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    if (fly[l >> 1] >> (16 * (l & 1)) & 1u) {
+      if (!(voted[l >> 1] >> (16 * (l & 1)) & 1u)) lane32(sv, l) = kNoopValue;
+      lane32(ls, l) = a.t;
+    }
+  }
+  st16(out<int>(a, O_SV) + gw, sv[0]);
+  st16(out<int>(a, O_SV) + gw + 4, sv[1]);
+  st16(out<int>(a, O_LS) + gw, ls[0]);
+  st16(out<int>(a, O_LS) + gw + 4, ls[1]);
+}
+
+// A flat grid over the G * W / 8 chunks of 8 slots (a grid-stride loop
+// in size_t, so G * W past 2^31 slots is safe).
+__global__ void __launch_bounds__(256, 2) p1_promise_vec(const Args a) {
+  const size_t GW = static_cast<size_t>(a.G) * a.W;
+  const size_t chunks = GW / 8;
+  const int per_group = a.W / 8;
+  for (size_t c = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       c < chunks; c += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int g = static_cast<int>(c / per_group);
+    if (in<uint8_t>(a, MASK)[g]) {
+      p1_repair_chunk(a, GW, g, c * 8);
+    } else {
+      p1_copy_chunk(a, GW, c * 8);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -774,11 +930,21 @@ __global__ void p1_promise_any(const Args a) {
   const size_t GW = static_cast<size_t>(a.G) * a.W;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < GW; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    p1_slot<0>(a, static_cast<int>(i / a.W), i);
+    p1_slot(a, static_cast<int>(i / a.W), i);
   }
 }
 
 enum Which { kFusedTick = 0, kVoteQuorum = 1, kDispatch = 2, kP1Promise = 3 };
+// Routes of the phase-1 kernel, as the wrapper names them
+// (ops/multipaxos.py p1_promise_route; codes of ops/registry.py ROUTES).
+enum Route { kGeneral = 1, kVector = 2 };
+
+cudaError_t launch_p1_vector(const Args& a, cudaStream_t stream) {
+  size_t blocks = (static_cast<size_t>(a.G) * a.W / 8 + 255) / 256;
+  if (blocks > 0x7fffffffu) blocks = 0x7fffffffu;
+  p1_promise_vec<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(a);
+  return cudaGetLastError();
+}
 
 template <int A>
 cudaError_t launch_a(int which, const Args& a, cudaStream_t stream) {
@@ -786,9 +952,6 @@ cudaError_t launch_a(int which, const Args& a, cudaStream_t stream) {
   const dim3 grid((a.G + a.gpb - 1) / a.gpb);
   const size_t shmem = sizeof(int) * a.gpb * (1 + 2 * A);
   switch (which) {
-    case kP1Promise:
-      p1_promise_kernel<A><<<grid, block, 0, stream>>>(a);
-      break;
     case kFusedTick:
       fused_tick_kernel<A><<<grid, block, shmem, stream>>>(a);
       break;
@@ -853,9 +1016,12 @@ int fpx_mp_num_slots() { return NUM_SLOTS; }
 
 // Launch one kernel. ptrs holds NUM_SLOTS device pointers (NULL where a
 // kernel does not use the slot); ints = {G, W, t, f, retry_timeout,
-// num_groups, age, gpb}. A in {3, 5, 7, 9} with W * gpb <= 1024 runs the
-// templated kernel, any other A >= 1 and W >= 1 the general one. Returns
-// the CUDA error of the launch (0 = launched). Does not synchronise.
+// num_groups, age, gpb, route}. A in {3, 5, 7, 9} with W * gpb <= 1024
+// runs the templated kernel, any other A >= 1 and W >= 1 the general one.
+// The phase-1 kernel takes the route its wrapper chose instead (`Route`)
+// and refuses the vector route unless W % 8 == 0 and every pointer is
+// 16-byte aligned. Returns the CUDA error of the launch (0 = launched).
+// Does not synchronise.
 int fpx_mp_launch(int which, int A, void* const* ptrs, const int* ints,
                   void* stream) {
   Args a;
@@ -872,6 +1038,19 @@ int fpx_mp_launch(int which, int A, void* const* ptrs, const int* ints,
   if (a.G <= 0) return 0;
   if (a.W <= 0 || A <= 0 || a.gpb <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (which == kP1Promise) {
+    switch (ints[8]) {
+      case kVector:
+        if (a.W % 8 != 0 || !all_aligned16(a.p, NUM_SLOTS)) {
+          return cudaErrorMisalignedAddress;
+        }
+        return launch_p1_vector(a, s);
+      case kGeneral:
+        return launch_any(which, a, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   if (static_cast<long long>(a.W) * a.gpb <= 1024) {
     switch (A) {
       case 3: return launch_a<3>(which, a, s);

@@ -30,6 +30,11 @@ equal (values and dtypes, ``bit_identical``) and keep the best of
 ``rounds`` interleaved timings, each a host clock around work that ends
 in ``torch.cuda.synchronize()``. The benches write no file.
 
+:func:`device_times` times one launch on the device alone, cold (after
+an L2 flush that leaves the cache dirty, and after one that leaves it
+clean) and warm (back to back), with the host's enqueue hidden;
+``chip_smoke.py`` gives every kernel row those three times.
+
 Left out, with no counterpart in the port yet: the Pallas block sweep
 (``AUTOTUNE_BLOCKS``, ``best_block``, ``block_sweep_seconds``,
 ``dispatch_block``: the port's ``block`` is groups per CTA, and each
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import functools
 import json
+import statistics
 import sys
 import time
 from typing import Callable, Dict, List, Tuple
@@ -130,6 +136,93 @@ def _repeat(fn: Callable, iters: int, device: torch.device) -> Callable[[], int]
         return iters
 
     return run
+
+
+# Twice the 50 MB L2 of an H100: writing, or reading, this many bytes
+# evicts whatever a launch left in the cache.
+L2_FLUSH_BYTES = 2 * 50 * 2**20
+# A spin of ~5 ms at the SM clock: the host queues its launches meanwhile,
+# so the events that follow time the device alone.
+_SPIN_CYCLES = 10_000_000
+
+
+def _cold_ms(launch: Callable[[], None], flush: Callable[[], object],
+             reps: int) -> float:
+    """The median over ``reps`` of event A to event B around one launch,
+    each pair queued after ``flush()``, all behind a spin."""
+    pairs = []
+    torch.cuda._sleep(_SPIN_CYCLES)
+    for _ in range(reps):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        launch()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_times(launch: Callable[[], None], reps: int = 30) -> Dict[str, float]:
+    """Device time of one ``launch()`` on the current CUDA stream, in ms,
+    with the host's enqueue kept out of every interval:
+
+    * ``device_ms_cold``: the median of ``reps`` intervals, each an L2
+      flush by a write of :data:`L2_FLUSH_BYTES` to a scratch buffer, then
+      event A, the launch, event B. The host never synchronises inside
+      the loop, and the loop is queued behind a spin, so while the flush
+      runs the host is already ahead: A to B is the launch alone, reading
+      its inputs from device memory. The flush leaves the L2 full of dirty
+      lines, so the launch also pays for writing back those it evicts.
+    * ``device_ms_cold_clean``: the same after a flush that leaves the L2
+      clean, a read of :data:`L2_FLUSH_BYTES` (their sum). Its inputs come
+      from device memory as before, but what the launch writes may stay
+      in the L2 past event B: this time leaves out the write-back of its
+      outputs, up to the L2's size.
+    * ``device_ms_warm``: ``reps`` launches back to back behind a spin,
+      (B - A) / reps: the inputs in L2 as far as they fit.
+
+    ``launch`` must not synchronise the host itself."""
+    scratch = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    launch()
+    torch.cuda.synchronize()
+    out = {
+        "device_ms_cold": _cold_ms(launch, scratch.zero_, reps),
+        "device_ms_cold_clean": _cold_ms(launch, scratch.sum, reps),
+    }
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(_SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        launch()
+    b.record()
+    b.synchronize()
+    out["device_ms_warm"] = a.elapsed_time(b) / reps
+    return out
+
+
+def steady_ms(launches, reps: int = 10) -> float:
+    """Device ms a launch when ``launches``, each on its own copy of the
+    inputs and outputs, run round-robin ``reps`` times back to back
+    behind a spin. With the copies together several times the L2's size,
+    each launch reads its inputs from device memory and its outputs are
+    written back while the launches after it run: the cost a launch has
+    in a long stream of work."""
+    for launch in launches:
+        launch()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(_SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        for launch in launches:
+            launch()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (reps * len(launches))
 
 
 def _interleaved_best(contenders: Dict[str, Callable], iters: int, rounds: int,

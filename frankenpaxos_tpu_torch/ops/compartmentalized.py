@@ -25,8 +25,13 @@ its tensors lie on the CPU and launches the kernel when they lie on the
 card; it never falls back from the card to the plain version.
 
 Bound: the kernel is bound by the bytes it moves (a few integer ops per
-byte). At the main shape ``(R, C, NR, G, W) = (2, 2, 3, 25000, 32)`` it
-moves ~117 B per ring slot, ~94 MB a launch: ~28 us at 3.35 TB/s.
+byte). At the main shape ``(R, C, NR, G, W) = (2, 2, 3, 25000, 32)`` the
+function needs 57.7 MB on random inputs (:func:`grid_vote_needed_bytes`;
+~94 MB if every input is read): ~17 us at 3.35 TB/s. The kernel has three
+routes, chosen by :func:`grid_vote_route`: the vector route (8 slots a
+thread, 16-byte loads), which the main path takes; the scalar route (a
+thread a slot), which a grid past 2 x 2 cells (f = 2 runs 3 x 3) takes;
+the general kernel (a CTA a group) past W = 1024.
 
 :func:`unfused_grid_vote` (replaces the Pallas ``unfused_grid_vote`` at
 ``frankenpaxos_tpu/ops/compartmentalized.py:497``) is the same work in
@@ -139,6 +144,31 @@ def reference_grid_vote(
         p2a, p2b, rep_arrival, status, last_send, rep_exec,
         newly_chosen, timed_out, votes_cast, votes_dropped,
     )
+
+
+def grid_vote_needed_bytes(args, outs) -> int:
+    """The bytes :func:`reference_grid_vote` must move on these inputs
+    (``args``: its positional arguments; ``outs``: its outputs on them):
+    every input and output once, except p2b_del at cells that do not
+    vote, p2b_lat where no vote is delivered, retry_del at the cells of
+    slots that do not time out, retry_lat where no re-send lands and
+    rep_lat at slots not newly chosen: the kernels read those only where
+    they are used."""
+    p2a = args[0]
+    R, C, G, W = p2a.shape
+    NR = args[2].shape[0]
+    cells, rep_cells = R * C * G * W, NR * G * W
+    voted = int(outs[8].sum())
+    delivered = voted - int(outs[9].sum())
+    timed = outs[7]
+    resent = int((timed[None, None] & args[10]).sum())
+    armed = int(outs[6].sum()) * NR
+    moved = sum(x.numel() * x.element_size()
+                for x in (*args, *outs) if isinstance(x, torch.Tensor))
+    skip = ((cells - voted) + (cells - delivered) * 4
+            + (cells - int(timed.sum()) * R * C) + (cells - resent) * 4
+            + (rep_cells - armed) * 4)
+    return moved - skip
 
 
 # ---------------------------------------------------------------------------
@@ -322,12 +352,15 @@ def _check_inputs(
 def _prepare_grid_vote(
     plane, p2a, p2b, rep_arrival, status, last_send, rep_exec, head,
     next_slot, alive_of_pos, p2b_del, retry_del, p2b_lat, retry_lat, rep_lat,
-    t, block=0, *, retry_timeout,
+    t, *, block=0, retry_timeout, fused,
 ):
-    """The checks and output allocation that the fused and the unfused
-    wrappers share. Returns ``(ins, outs, ints)``: the input and output
-    tensors by pointer slot and the launch's integer arguments ``(R, C,
-    NR, G, W, t, retry_timeout, gpb)``."""
+    """The checks, launch shape and output allocation that the fused and
+    the unfused wrappers share. Returns ``(ins, outs, ints, route)``: the
+    input and output tensors by pointer slot, the launch's integer
+    arguments ``(R, C, NR, G, W, t, retry_timeout, gpb, route code)`` and
+    the route. ``fused``: the fused kernel takes :func:`grid_vote_route`;
+    the six passes' replica pass runs a thread a slot, as the scalar
+    route does. ``block``: groups per CTA (0: the route's default)."""
     R, C, G, W = p2a.shape
     NR = rep_arrival.shape[0]
     ins = dict(
@@ -340,8 +373,8 @@ def _prepare_grid_vote(
     t = int(t)
     if not -(2**31) <= t < 2**31:
         raise ValueError(f"{plane}: tick {t} outside int32")
-    gpb = block if block > 0 else max(1, 256 // W)
-    gpb = max(1, min(gpb, 1024 // W))
+    route = grid_vote_route(*ins.values(), block=block) if fused else "scalar"
+    gpb = _groups_per_cta(route, W, block)
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=p2a.device)
@@ -358,13 +391,57 @@ def _prepare_grid_vote(
         o_votes=empty((G, W), torch.int32),
         o_dropped=empty((G, W), torch.int32),
     )
-    return ins, outs, (R, C, NR, G, W, t, retry_timeout, gpb)
+    ints = (R, C, NR, G, W, t, retry_timeout, gpb, registry.ROUTES.index(route))
+    return ins, outs, ints, route
 
 
 _OUT_ORDER = (
     "o_p2a", "o_p2b", "o_rep", "o_status", "o_ls", "o_rep_exec", "o_newly",
     "o_timed", "o_votes", "o_dropped",
 )
+
+
+def _groups_per_cta(route: str, W: int, block: int) -> int:
+    """Groups a CTA holds on a route: ``block`` if given, else 256
+    threads' worth (W threads a group on the scalar route, W / 8 on the
+    vector route, at most 256 threads a CTA there); 1 on the general
+    route (a CTA per group)."""
+    if route == "general":
+        return 1
+    if route == "vector":
+        per_group = W // 8
+        return max(1, min(block or 256 // per_group, 256 // per_group))
+    return max(1, min(block or 256 // W, 1024 // W))
+
+
+# Grid cells, and replicas, whose rows a thread of the vector route holds
+# in registers: kMaxRows of csrc/compartmentalized.cu, whose launcher
+# refuses the vector route past it (chip_smoke.py's route cases at four
+# and at six cells would then fail).
+VECTOR_MAX_ROWS = 4
+
+
+def grid_vote_route(*args, block: int = 0) -> str:
+    """The grid-vote kernel's route for the plane's tensors (the
+    arguments of :func:`fused_grid_vote`); the one place that decides it:
+
+    * "vector" (8 slots a thread, 16-byte loads, every row of the slots
+      in registers) when W % 8 == 0, W <= 1024, R * C and NR are at most
+      VECTOR_MAX_ROWS and every tensor is 16-byte aligned;
+    * else "scalar" (a thread a slot) for W <= 1024, when the CTA's
+      per-replica gap table fits in 48 KB of shared memory;
+    * else "general" (a CTA per group, any W).
+
+    The kernel's launcher checks the route again and refuses it if its
+    conditions do not hold."""
+    R, C, _, _ = args[0].shape
+    NR, _, W = args[2].shape
+    if (W % 8 == 0 and W <= 1024 and max(R * C, NR) <= VECTOR_MAX_ROWS
+            and registry.aligned16(args)):
+        return "vector"
+    if W <= 1024 and 4 * NR * _groups_per_cta("scalar", W, block) <= 48 * 1024:
+        return "scalar"
+    return "general"
 
 
 def _launch_error(plane: str, lib, err: int, what: str = "kernel") -> None:
@@ -375,15 +452,15 @@ def _launch_error(plane: str, lib, err: int, what: str = "kernel") -> None:
         )
 
 
-def _grid_vote_kernel(*args, retry_timeout: int):
+def _grid_vote_kernel(*args, block: int = 0, retry_timeout: int):
     """Check the tensors, allocate the outputs and pack the launch;
     returns ``(launch, outputs)``. The launch loads the CUDA library, so
-    the checks run without a card. ``args``: the wrapper's positional
-    arguments, ``t`` and ``block`` included."""
+    the checks run without a card. ``args``: the wrapper's tensors and
+    ``t``."""
     from frankenpaxos_tpu_torch.ops import _build
 
-    ins, outs, ints = _prepare_grid_vote(
-        _PLANE, *args, retry_timeout=retry_timeout
+    ins, outs, ints, route = _prepare_grid_vote(
+        _PLANE, *args, block=block, retry_timeout=retry_timeout, fused=True
     )
     tensors = {**ins, **outs}
     ptrs = (ctypes.c_void_p * len(_PTR_SLOTS))(
@@ -396,8 +473,10 @@ def _grid_vote_kernel(*args, retry_timeout: int):
         lib = _build.kernel_lib("fpx_cz", len(_PTR_SLOTS))
         stream = torch.cuda.current_stream(device).cuda_stream
         _launch_error(_PLANE, lib, lib.fpx_cz_launch(ptrs, ints, stream))
-        registry.count_launch(_PLANE)
+        registry.count_launch(_PLANE, route)
 
+    launch.route = route
+    launch.packed = (ptrs, ints)
     return launch, tuple(outs[k] for k in _OUT_ORDER)
 
 
@@ -411,9 +490,10 @@ def fused_grid_vote(
     """:func:`reference_grid_vote` as one CUDA kernel on the card (the
     plain version on the CPU). Replaces the Pallas ``fused_grid_vote``
     (frankenpaxos_tpu/ops/compartmentalized.py:289). Bound by bytes:
-    ~94 MB at the main shape (2, 2, 3, 25000, 32), ~28 us at 3.35 TB/s.
-    Bit-exact: integer work only, ring ordinals floored, int16 clocks
-    aged in int and cast back."""
+    57.7 MB needed at the main shape (2, 2, 3, 25000, 32) on random
+    inputs, ~17 us at 3.35 TB/s (module docstring). Bit-exact: integer
+    work only, ring ordinals floored, int16 clocks aged with the int16
+    wrap."""
     args = (
         p2a, p2b, rep_arrival, status, last_send, rep_exec, head, next_slot,
         alive_of_pos, p2b_del, retry_del, p2b_lat, retry_lat, rep_lat,
@@ -421,7 +501,7 @@ def fused_grid_vote(
     if on_cpu(args):
         return reference_grid_vote(*args, t, retry_timeout=retry_timeout)
     launch, out = _grid_vote_kernel(
-        *args, t, block, retry_timeout=retry_timeout
+        *args, t, block=block, retry_timeout=retry_timeout
     )
     launch()
     return out
@@ -429,7 +509,8 @@ def fused_grid_vote(
 
 def prepared_launch(*args, **statics) -> tuple:
     """For timing the kernel apart from its wrapper: checks the tensors
-    ``args`` (the wrapper's arguments), allocates the outputs and returns
+    ``args`` (the wrapper's tensors and ``t``; ``statics``: ``block`` and
+    ``retry_timeout`` by name), allocates the outputs and returns
     ``(launch, outputs)``; each ``launch()`` runs the kernel once into
     those outputs (and counts as a launch). On CPU tensors it runs the
     wrapper's checks alone: only the launch needs the card."""
@@ -456,7 +537,7 @@ UNFUSED_REPLACES = (
 registry.LAUNCHES.setdefault(UNFUSED_PLANE, 0)
 
 
-def prepared_unfused_launch(*args, retry_timeout: int) -> tuple:
+def prepared_unfused_launch(*args, block: int = 0, retry_timeout: int) -> tuple:
     """:func:`prepared_launch` for :func:`unfused_grid_vote`: returns
     ``(launch, outputs, passes)``. Each ``launch()`` runs the six passes
     once, in order on the current stream, into the same tensors, checks
@@ -466,8 +547,9 @@ def prepared_unfused_launch(*args, retry_timeout: int) -> tuple:
     :func:`reference_unfused_passes`)."""
     from frankenpaxos_tpu_torch.ops import _build
 
-    ins, outs, ints = _prepare_grid_vote(
-        UNFUSED_PLANE, *args, retry_timeout=retry_timeout
+    ins, outs, ints, _ = _prepare_grid_vote(
+        UNFUSED_PLANE, *args, block=block, retry_timeout=retry_timeout,
+        fused=False,
     )
     aged = {f"a_{k}": torch.empty_like(ins[k]) for k in ("p2a", "p2b", "rep")}
     tensors = {**ins, **aged, **outs}
@@ -515,7 +597,7 @@ def unfused_grid_vote(
     if on_cpu(args):
         return reference_unfused_grid_vote(*args, t, retry_timeout=retry_timeout)
     launch, out, _ = prepared_unfused_launch(
-        *args, t, block, retry_timeout=retry_timeout
+        *args, t, block=block, retry_timeout=retry_timeout
     )
     launch()
     return out

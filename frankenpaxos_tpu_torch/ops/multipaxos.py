@@ -34,8 +34,11 @@ plain version. The kernels take the State's dtype policy (int16 clocks
 and rounds, int8 statuses, int32 ticks, ids and values) and every shape
 the JAX kernels run: templated kernels for A = 2f+1 in {3, 5, 7, 9} and
 W <= 1024, a general instantiation (runtime A, a loop over W) for the
-rest. A wrapper checks its tensors before it loads the CUDA library, so
-``prepared_launch`` on CPU tensors runs every check without a card.
+rest. The phase-1 kernel has two routes instead (:func:`p1_promise_route`):
+the vector route, which the failover path takes, and a thread a slot for
+any A and W. A wrapper checks its tensors before it loads the CUDA
+library, so ``prepared_launch`` on CPU tensors runs every check without
+a card.
 
 Bound: every kernel is bound by the bytes it moves (a few integer ops
 per byte). At the flagship shape (A=3, G=3334, W=256) the fused tick
@@ -306,6 +309,32 @@ def reference_p1_promise(
     return new_slot_value, new_p2a, new_p2b, new_last_send
 
 
+def p1_promise_needed_bytes(args) -> int:
+    """The bytes :func:`reference_p1_promise` must move on these inputs
+    (its positional arguments, ``t`` last): every output once, the mask,
+    and of the inputs only what decides an output. A masked group needs
+    its status row and learned bits; its in-flight slots need their
+    re-send latencies, the vote rounds of the learned acceptors and the
+    winning vote's value where one exists; every other slot needs its
+    carried slot value, send tick and clocks. An unmasked group needs no
+    status: all of it copies through."""
+    status, vote_round, _, _, _, _, _, mask, learned, _, _ = args
+    A, G, W = vote_round.shape
+    in_flight = (status == PROPOSED) & mask[:, None]  # [G, W]
+    n_in = int(in_flight.sum())
+    seen = learned[:, :, None] & (vote_round >= 0)  # [A, G, W]
+    n_learned_in = int((learned[:, :, None] & in_flight[None]).sum())
+    n_voted = int((in_flight & seen.any(dim=0)).sum())
+    n_masked = int(mask.sum())
+    outs = G * W * 8 + A * G * W * 4
+    return (
+        G + n_masked * (W + A)
+        + n_in * A * 2 + n_learned_in * 2 + n_voted * 4
+        + (G * W - n_in) * (8 + A * 4)
+        + outs
+    )
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -387,11 +416,16 @@ def _prepare(
     num_groups: int = 1,
     age: bool = False,
     block: int = 0,
+    route: str = "",
 ) -> Callable[[], None]:
     """Check the inputs and pack the launch arguments; returns the launch
     itself (which loads the library, counts the launch and raises on a
     refused launch), so a caller can time the kernel apart from the
-    checks and allocations around it."""
+    checks and allocations around it. ``route``: the phase-1 kernel's
+    (:func:`p1_promise_route`), counted per route; the other kernels
+    pick their instantiation from A and W. The launch carries ``route``
+    and ``packed``, the library call's arguments (``harness/
+    vector_race.py`` calls another build of the source with them)."""
     from frankenpaxos_tpu_torch.ops import _build
 
     _check_inputs(name, ins, A, G, W)
@@ -407,8 +441,9 @@ def _prepare(
             for s in _PTR_SLOTS
         ]
     )
-    ints = (ctypes.c_int * 8)(
-        G, W, t, f, retry_timeout, num_groups, int(bool(age)), gpb
+    ints = (ctypes.c_int * 9)(
+        G, W, t, f, retry_timeout, num_groups, int(bool(age)), gpb,
+        registry.ROUTES.index(route) if route else 0,
     )
     device = next(iter(ins.values())).device
     which = _WHICH[name]
@@ -422,9 +457,23 @@ def _prepare(
                 f"{name}: kernel launch failed: "
                 f"{lib.fpx_error_string(err).decode()} (cuda error {err})"
             )
-        registry.count_launch(name)
+        registry.count_launch(name, route)
 
+    launch.route = route
+    launch.packed = (which, A, ptrs, ints)
     return launch
+
+
+def p1_promise_route(*args) -> str:
+    """The phase-1 kernel's route for the plane's arguments (those of
+    :func:`fused_p1_promise`, ``t`` last): "vector" when W % 8 == 0 and
+    every tensor is 16-byte aligned (8 slots a thread, 16-byte loads);
+    else "general" (a thread a slot, any A and W). The kernel refuses the
+    vector route where its conditions do not hold."""
+    W = args[1].shape[2]
+    if W % 8 == 0 and registry.aligned16(args):
+        return "vector"
+    return "general"
 
 
 def _empty(shape, dtype, like):
@@ -673,11 +722,13 @@ def fused_p1_promise(
 ):
     """:func:`reference_p1_promise` as one CUDA kernel on the card (the
     plain version on the CPU). Replaces the Pallas ``fused_p1_promise``
-    (frankenpaxos_tpu/ops/multipaxos.py:385). Bound by bytes: 55.5 MB if
-    every input is read at the flagship shape, ~17 us at 3.35 TB/s; the
-    kernel reads the votes and latencies only of in-flight slots of
-    masked groups, and the carried clocks and slot planes only of the
-    others. Bit-exact: a first-max scan with strict ``>``."""
+    (frankenpaxos_tpu/ops/multipaxos.py:385). Bound by bytes
+    (:func:`p1_promise_needed_bytes`: ~34 MB at the flagship shape, ~10
+    us at 3.35 TB/s). On the vector route (:func:`p1_promise_route`) a
+    thread owns 8 slots of one group and reads the group's mask once: an
+    unmasked group is a 16-byte copy that never reads the status, a
+    masked group reads its rows in one trip and the winners' vote values
+    in a second. Bit-exact: a first-max scan with strict ``>``."""
     args = (
         status, vote_round, vote_value, slot_value, p2a_off, p2b_off,
         last_send, mask, learned, lat,
@@ -709,6 +760,10 @@ def _p1_promise_kernel(
     )
     launch = _prepare(
         "multipaxos_p1_promise", ins, outs, A=A, G=G, W=W, t=t, block=block,
+        route=p1_promise_route(
+            status, vote_round, vote_value, slot_value, p2a_off, p2b_off,
+            last_send, mask, learned, lat,
+        ),
     )
     return launch, (outs["o_sv"], outs["o_p2a"], outs["o_p2b"], outs["o_ls"])
 
@@ -749,7 +804,7 @@ MP_DISPATCH_OUTS = (
 )
 FUSED_TICK_OUTS = MP_DISPATCH_OUTS + ("acc_round", "nsends", "max_ord")
 P1_PROMISE_OUTS = ("slot_value", "p2a", "p2b", "last_send")
-P1_PROMISE_CASES = ("random", "noop", "ties")
+P1_PROMISE_CASES = ("random", "noop", "ties", "sparse")
 
 
 def _np_clock(rng, shape, p=0.3):
@@ -851,7 +906,9 @@ def example_p1_promise_args(rng, A, G, W, case="random", t=40):
     and learned acceptors); "noop" (every group masked, every slot in
     flight, no acceptor learned: every slot repairs to a noop); "ties"
     (every acceptor voted in the same round per slot, with different
-    values, so the first learned acceptor's value must win)."""
+    values, so the first learned acceptor's value must win); "sparse"
+    (the failover path's inputs: about 1% of the groups masked, at least
+    one, with every acceptor learned, as an election reads them)."""
     status = rng.integers(0, 3, (G, W)).astype(np.int8)
     vote_round = rng.integers(-1, 3, (A, G, W)).astype(np.int16)
     mask = rng.random((G,)) < 0.6
@@ -867,6 +924,10 @@ def example_p1_promise_args(rng, A, G, W, case="random", t=40):
         vote_round = np.broadcast_to(
             rng.integers(0, 3, (G, W)), (A, G, W)
         ).astype(np.int16)
+    elif case == "sparse":
+        mask = rng.random((G,)) < 0.01
+        mask[rng.integers(0, G)] = True
+        learned = np.ones((A, G), bool)
     elif case != "random":
         raise ValueError(f"unknown case {case!r}")
     vote_value = np.where(

@@ -19,7 +19,9 @@ What runs is decided by the policy and by the device of the arguments:
 two per-plane kernels instead of the whole-tick kernel.
 
 Every wrapper adds one to ``LAUNCHES[plane]`` where it launches its
-kernel, and nowhere else; ``reset_launches`` zeroes the counts. The
+kernel, and nowhere else; a kernel with more than one route (the
+phase-1 and grid-vote kernels: vector, scalar, general) also adds one to
+``ROUTE_LAUNCHES[plane][route]``. ``reset_launches`` zeroes the counts. The
 JAX package's autotune table, ``shard_lowering`` and cost-model hooks
 have no counterpart yet.
 """
@@ -86,6 +88,12 @@ PLANES: Dict[str, Plane] = {}
 
 # Kernel launches per plane (plain ints; plain-version runs never count).
 LAUNCHES: Dict[str, int] = {}
+# Kernel launches per route, for the kernels that take more than one:
+# {plane: {route: launches}}.
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {}
+# Those kernels' routes, in the order of their launchers' route codes
+# (csrc/multipaxos.cu `Route`, csrc/compartmentalized.cu fpx_cz_launch).
+ROUTES = ("scalar", "general", "vector")
 
 
 def register(plane: Plane) -> Plane:
@@ -98,10 +106,14 @@ def register(plane: Plane) -> Plane:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, route: str = "") -> None:
     LAUNCHES[name] += 1
+    if route:
+        routes = ROUTE_LAUNCHES.setdefault(name, {})
+        routes[route] = routes.get(route, 0) + 1
 
 
 def coverage() -> Dict[str, Tuple[str, ...]]:
@@ -140,6 +152,27 @@ def on_cpu(tensors: Sequence[torch.Tensor]) -> bool:
     if dev.type == "cuda":
         return False
     raise ValueError(f"no kernel for device {dev}")
+
+
+def aligned16(tensors) -> bool:
+    """True when every tensor's data starts on a 16-byte boundary (the
+    vector routes' loads and stores are 16 bytes wide)."""
+    return all(
+        x.data_ptr() % 16 == 0 for x in tensors if isinstance(x, torch.Tensor)
+    )
+
+
+def misaligned(args) -> tuple:
+    """Each tensor of ``args`` copied into a contiguous view one element
+    past a 16-byte boundary (the vector routes refuse it); other
+    arguments pass."""
+    out = []
+    for x in args:
+        if isinstance(x, torch.Tensor):
+            flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+            x = flat[1:].view(x.shape).copy_(x)
+        out.append(x)
+    return tuple(out)
 
 
 def to_torch(args, device) -> tuple:

@@ -222,3 +222,42 @@ def test_unfused_counter_is_not_a_plane():
     assert tcz.UNFUSED_PASSES == (
         "age", "vote", "counts", "choose", "replica", "retry",
     )
+
+
+def _grid_tensors(R, C, NR, G, W):
+    """Zero tensors of the grid-vote plane's shapes and dtypes, t last."""
+    shapes = {
+        "rcgw": (R, C, G, W), "ngw": (NR, G, W), "ng": (NR, G),
+        "gw": (G, W), "g": (G,),
+    }
+    return tuple(
+        torch.zeros(shapes[kind], dtype=dtype)
+        for kind, dtype in (tcz._IN_SPECS[s] for s in tcz.GRID_VOTE_IN_SLOTS)
+    ) + (33,)
+
+
+@pytest.mark.parametrize("shape,skew,route", [
+    ((2, 2, 3, 25000, 32), None, "vector"),  # the main shape, aligned
+    ((2, 2, 3, 25000, 32), 0, "scalar"),  # p2a one element off
+    ((2, 2, 3, 25000, 32), 3, "scalar"),  # status one byte off
+    ((2, 2, 3, 25000, 32), 13, "scalar"),  # rep_lat one element off
+    ((2, 2, 3, 40, 12), None, "scalar"),  # W % 8 != 0
+    ((2, 2, 3, 7, 16), None, "vector"),  # G = 7
+    ((2, 2, 3, 4, 1024), None, "vector"),
+    ((1, 4, 4, 7, 16), None, "vector"),  # four cells, four replicas
+    ((2, 3, 2, 7, 16), None, "scalar"),  # six cells: more than a thread holds
+    ((2, 2, 5, 7, 16), None, "scalar"),  # five replicas
+    ((2, 2, 3, 2, 2048), None, "general"),  # W > 1024
+    ((2, 2, 3, 2, 2048), 0, "general"),
+])
+def test_grid_vote_route(shape, skew, route):
+    """The route the wrapper asks the kernel for, from W and the planes'
+    16-byte alignment; prepared_launch on CPU tensors takes it."""
+    args = list(_grid_tensors(*shape))
+    if skew is not None:
+        flat = torch.empty(args[skew].numel() + 1, dtype=args[skew].dtype)
+        args[skew] = flat[1:].view(args[skew].shape)
+        assert args[skew].is_contiguous() and args[skew].data_ptr() % 16
+    assert tcz.grid_vote_route(*args) == route
+    launch, _ = tcz.prepared_launch(*args, retry_timeout=8)
+    assert launch.route == route

@@ -91,7 +91,10 @@ def test_fused_tick(shape, age):
 P1_CASES = [
     (case, shape, seed)
     for shape in [(3, 8, 16), (5, 6, 32)]
-    for case, seeds in (("random", (0, 1, 2)), ("noop", (0,)), ("ties", (0,)))
+    for case, seeds in (
+        ("random", (0, 1, 2)), ("noop", (0,)), ("ties", (0,)),
+        ("sparse", (0, 1)),
+    )
     for seed in seeds
 ]
 
@@ -135,6 +138,92 @@ def test_p1_promise_edge_cases_bite():
     assert torch.equal(sv, want)
     # The tie is real: the acceptors' values differ somewhere.
     assert bool((vv[0] != vv[1]).any())
+
+
+def test_sparse_case_is_the_failover_path():
+    """"sparse" masks about 1% of the groups (at least one) and learns
+    every acceptor, as an election's repair reads them."""
+    A, G, W = 3, 3334, 16
+    args = tmp.example_p1_promise_args(
+        np.random.default_rng(0), A, G, W, case="sparse"
+    )
+    mask, learned = args[7], args[8]
+    assert 1 <= mask.sum() <= 0.02 * G and learned.all()
+    small = tmp.example_p1_promise_args(
+        np.random.default_rng(0), A, 4, W, case="sparse"
+    )
+    assert small[7].sum() >= 1
+
+
+def test_p1_promise_needed_bytes_counted_by_hand():
+    """A = 2, G = 2, W = 2: group 0 masked, slot (0, 0) in flight with
+    acceptor 0 learned and voted, slot (0, 1) idle; group 1 unmasked."""
+    status = torch.tensor([[1, 0], [1, 2]], dtype=torch.int8)
+    vote_round = torch.tensor(
+        [[[0, -1], [1, 1]], [[2, 2], [0, 0]]], dtype=torch.int16
+    )
+    vote_value = torch.zeros((2, 2, 2), dtype=torch.int32)
+    clocks = torch.zeros((2, 2, 2), dtype=torch.int16)
+    slots = torch.zeros((2, 2), dtype=torch.int32)
+    mask = torch.tensor([True, False])
+    learned = torch.tensor([[True, False], [False, False]])
+    args = (
+        status, vote_round, vote_value, slots, clocks, clocks, slots, mask,
+        learned, clocks, 40,
+    )
+    want = (
+        2  # mask
+        + 2 + 2  # group 0's status row and learned bits
+        + 2 * 2  # the in-flight slot's re-send latencies
+        + 2  # acceptor 0's vote round (acceptor 1 is not learned)
+        + 4  # the winning vote's value
+        + 3 * (4 + 4 + 2 * 2 + 2 * 2)  # 3 idle slots: value, tick, clocks
+        + 2 * 2 * 8 + 2 * 2 * 2 * 4  # outputs
+    )
+    assert tmp.p1_promise_needed_bytes(args) == want == 128
+
+
+def _p1_tensors(A, G, W):
+    """Zero tensors of the phase-1 plane's shapes and dtypes."""
+    z = torch.zeros
+    return (
+        z((G, W), dtype=torch.int8), z((A, G, W), dtype=torch.int16),
+        z((A, G, W), dtype=torch.int32), z((G, W), dtype=torch.int32),
+        z((A, G, W), dtype=torch.int16), z((A, G, W), dtype=torch.int16),
+        z((G, W), dtype=torch.int32), z((G,), dtype=torch.bool),
+        z((A, G), dtype=torch.bool), z((A, G, W), dtype=torch.int16), 40,
+    )
+
+
+def _odd_offset(x):
+    """A contiguous view of x's values one element past its own base."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("shape,skew,route", [
+    ((3, 3334, 256), None, "vector"),  # the flagship, aligned
+    ((3, 3334, 256), 0, "general"),  # status one byte off
+    ((3, 3334, 256), 4, "general"),  # an int16 clock plane one element off
+    ((3, 3334, 256), 3, "general"),  # an int32 plane one element off
+    ((3, 40, 12), None, "general"),  # W % 8 != 0
+    ((3, 7, 16), None, "vector"),  # G = 7
+    ((3, 4, 2048), None, "vector"),  # W = 2048
+    ((3, 4, 2044), None, "general"),  # W > 1024, W % 8 != 0
+    ((11, 7, 64), None, "vector"),  # A = 11
+    ((11, 7, 64), 1, "general"),  # A = 11, misaligned
+    ((11, 7, 12), None, "general"),  # A = 11, W % 8 != 0
+])
+def test_p1_promise_route(shape, skew, route):
+    """The route the wrapper asks the kernel for, from W, A and the
+    planes' 16-byte alignment; prepared_launch on CPU tensors takes it."""
+    args = list(_p1_tensors(*shape))
+    if skew is not None:
+        args[skew] = _odd_offset(args[skew])
+        assert args[skew].is_contiguous() and args[skew].data_ptr() % 16
+    assert tmp.p1_promise_route(*args) == route
+    launch, _ = tmp.prepared_launch("multipaxos_p1_promise", *args)
+    assert launch.route == route
 
 
 def test_fused_tick_is_age_then_vote_then_dispatch():
