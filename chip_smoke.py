@@ -149,8 +149,19 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
     outputs differ fails the run. Its run is the six-pass kernel's main
     path: its launch count goes into the kernels line.
 
-Both new kernels are held against their plain versions in phase 3 too:
-the chain kernel at five shapes on four inputs and three partitions, the
+The chain kernel (#11) and the horizontal vote kernel (#9) are held
+against their plain versions on each of their two routes
+(``CR_ROUTE_CASES``, ``HZ_ROUTE_CASES``): the vector route at every shape
+that takes it, the general kernel at the shapes that do not and on a
+misaligned copy of every case, each launch on the route its case names
+(counted by the wrapper); every main-path launch of the two kernels must
+take the vector route, and their kernel rows add the general route's
+cold time (the parent commit's kernel with ``__restrict__`` pointers),
+the steady-stream time and a torch copy of the needed and of all bytes
+(``vector_route_keys``).
+The chain and execute kernels are held against their plain versions in
+phase 3: the chain kernel at eight shapes on four inputs and three
+partitions, the
 execute kernel at six windows on five inputs (the largest in shared
 memory, V = 1314, and the first on the global scratch, V = 1315, among
 them) and on an all-active dense graph at V = 1280, with its own and a
@@ -435,6 +446,19 @@ def only_vector(registry, plane: str, want: int, what: str) -> dict:
     return routes
 
 
+def one_route(registry, plane: str, route: str, label: str, kern, args,
+              statics):
+    """``kern(*args, **statics)`` once, synchronised; raise unless it
+    launched ``plane``'s kernel once, on ``route``. Returns the outputs."""
+    registry.reset_launches()
+    got = kern(*args, **statics)
+    torch.cuda.synchronize()
+    took = registry.ROUTE_LAUNCHES.get(plane, {})
+    if took != {route: 1}:
+        raise AssertionError(f"{label}: routes {took}, want {route}")
+    return got
+
+
 def cards_equal(mod, prng, cfg, what: str, ticks: int = 120) -> int:
     """Run ``cfg`` from seed 0 on the card and on the CPU; raise unless
     every State leaf is equal (dtypes included). Returns the leaf count."""
@@ -706,6 +730,15 @@ HZ_SHAPES = ((6, 3334, 32), (6, 33334, 32))
 SC_SHAPES = ((8, 10000), (8, 256))
 
 
+# (shape, route) of the horizontal vote's checks: the main shapes, f = 2
+# and f = 3 pools, ragged G, n = 9 (the general instantiation), all on the
+# vector route, and W = 6 on the general route; each is also held on
+# misaligned copies, which take the general route.
+HZ_ROUTE_CASES = tuple((s, "vector") for s in HZ_SHAPES + (
+    (10, 1001, 32), (6, 77, 16), (14, 9, 8), (18, 77, 32),
+)) + (((6, 77, 6), "general"),)
+
+
 def hz_statics(P: int) -> dict:
     n = P // 2
     return dict(n=n, quorum=(n - 1) // 2 + 1)
@@ -719,7 +752,7 @@ def check_hz_sc_kernels(registry, hzo, sco) -> dict:
     horizontal ones with and without a delivery plane). Returns the
     largest error per plane (0)."""
     err = {HZ_PLANE: 0, SC_PLANE: 0}
-    for shape in HZ_SHAPES + ((10, 1001, 32), (6, 77, 16), (14, 9, 8)):
+    for shape, route in HZ_ROUTE_CASES:
         st = hz_statics(shape[0])
         for case in hzo.EDGE_CASES:
             rng = np.random.default_rng(sum(shape))
@@ -729,13 +762,17 @@ def check_hz_sc_kernels(registry, hzo, sco) -> dict:
             for deliv in (True, False):
                 if not deliv:
                     args[8] = None
-                got = hzo.fused_horizontal_vote(*args, **st)
-                torch.cuda.synchronize()
-                want = hzo.reference_horizontal_vote(*args, **st)
-                label = f"{HZ_PLANE}{shape} {case} delivery={deliv}"
-                err[HZ_PLANE] = max(err[HZ_PLANE], outputs_equal(label, want, got))
+                for skew in (False, True):
+                    label = (f"{HZ_PLANE}{shape} {case} delivery={deliv}"
+                             f"{' misaligned' if skew else ''}")
+                    inputs = registry.misaligned(args) if skew else args
+                    got = one_route(registry, HZ_PLANE, "general" if skew else route,
+                                    label, hzo.fused_horizontal_vote, inputs, st)
+                    want = hzo.reference_horizontal_vote(*inputs, **st)
+                    err[HZ_PLANE] = max(err[HZ_PLANE], outputs_equal(label, want, got))
         log(f"exact: {HZ_PLANE}{shape} on {hzo.EDGE_CASES}, with and "
-            f"without a delivery plane")
+            f"without a delivery plane, {route} route and general route "
+            f"(misaligned)")
     for shape in ((8, 256), (8, 10000), (8, 100000), (2, 5), (32, 1000)):
         for case in sco.EDGE_CASES:
             for seed in range(3):
@@ -767,6 +804,7 @@ def horizontal_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
     registry.reset_launches()
     secs = sim.timed_run(ticks)
     launches = only_launches(registry, HZ_PLANE, ticks, phase)
+    routes = only_vector(registry, HZ_PLANE, ticks, phase)
     sim.assert_invariants(phase)
     s = sim.stats()
     done = s["committed"] - s0["committed"]
@@ -790,6 +828,7 @@ def horizontal_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
         "commit_latency_p50_ticks": p50, "commit_latency_p99_ticks": p99,
         **delta, "bank_violations": s["bank_violations"],
         "invariants": sim.invariants(), "launches": launches,
+        "route_launches": routes,
     }
     log(json.dumps(line))
     return {"line": line, "sim": sim}
@@ -890,10 +929,11 @@ def horizontal_and_scalog(ctx) -> dict:
     )
     run = horizontal_run(ctx, hz, 100, 300, "horizontal")
     out[HZ_PLANE] = run["line"]["launches"][HZ_PLANE]
+    out["hz_routes"] = run["line"]["route_launches"]
     out["hz_tick_ms"] = run["line"]["seconds"] * 1e3 / 300
     prof = profile_ticks(
         run["sim"].run, run["sim"].sync, 20, card, "horizontal_profile",
-        kernel="horizontal_vote_kernel",
+        kernel="horizontal_vote",
     )
     log(json.dumps(prof))
     out["hz_profiled_ms"] = prof["kernel_device_ms_per_launch"]
@@ -933,6 +973,7 @@ def horizontal_and_scalog(ctx) -> dict:
     (at_heal,) = sim.get("committed")
     secs += sim.timed_run(40)
     launches = only_launches(registry, HZ_PLANE, 100, "horizontal faults")
+    only_vector(registry, HZ_PLANE, 100, "horizontal faults")
     sim.assert_invariants("horizontal faults")
     tel = tel_mod.summary(sim.state.telemetry)
     s = sim.stats()
@@ -1016,8 +1057,9 @@ def horizontal_and_scalog(ctx) -> dict:
 def hz_sc_kernel_rows(ctx, launches: dict, max_err: dict, hs: dict) -> list:
     """Kernel rows for #9 and #10: the kernel alone, the wrapper and the
     plain version at the main shapes, beside the least time for the bytes
-    these inputs need (each kernel reads a cell only where the function
-    needs it; the all-bytes figure is ``bytes``)."""
+    these inputs need (``ops/horizontal.py``
+    ``horizontal_vote_needed_bytes``; the all-bytes figure is ``bytes``);
+    #9 with :func:`vector_route_keys`."""
     registry, hzo, sco = ctx["registry"], ctx["hzo"], ctx["sco"]
     rows = []
     for plane, mod, shapes, suffix in (
@@ -1042,18 +1084,8 @@ def hz_sc_kernel_rows(ctx, launches: dict, max_err: dict, hs: dict) -> list:
                 ))
                 args[8] = None  # the healthy tick passes no delivery plane
                 launch, outs = hzo.prepared_launch(*args, **st)
-                se, status, _, p2a, _, _, _, _, _, t = args
-                rows_bank = (torch.arange(P, device="cuda") >= st["n"]).int()
-                may = (p2a == t) & (rows_bank[:, None, None] == (se % 2)[None]) & (
-                    status == hzo.PROPOSED
-                )[None]
-                n_may = int(may.sum())
-                n_new = int(hzo.reference_horizontal_vote(*args, **st)[5].sum())
+                needed = hzo.horizontal_vote_needed_bytes(args, **st)
                 cells, slots = P * G * W, G * W
-                needed = (
-                    cells * 15 + n_may * 4 + (cells - n_may) * 7 + slots * 13
-                    + n_new * 4
-                )
                 ops = cells * 12 + slots * 8
                 kern, plain = hzo.fused_horizontal_vote, hzo.reference_horizontal_vote
             else:
@@ -1067,16 +1099,41 @@ def hz_sc_kernel_rows(ctx, launches: dict, max_err: dict, hs: dict) -> list:
                 needed = S * 8 + n_commit * S * 4 + P * 30 + 8
                 ops = S * max(1, n_commit) * 4
                 kern, plain = sco.fused_scalog_cut_commit, sco.reference_scalog_cut_commit
-            timed = _timed_vote_row(
-                kern, plain, launch, args, st, needed,
-                nbytes(args) + nbytes(outs), ops,
-            )
+            moved = nbytes(args) + nbytes(outs)
+            timed = _timed_vote_row(kern, plain, launch, args, st, needed, moved, ops)
+            if plane == HZ_PLANE:
+                timed.update(vector_route_keys("hz", args, st, launch, needed, moved))
             key = "" if i == 0 else suffix
             row.update({f"{k}{key}": v for k, v in timed.items()})
             row["shape" + key] = list(shape)
+        if plane == HZ_PLANE:
+            row["route_launches"] = hs["hz_routes"]
         row["library_ms"] = None
         rows.append(row)
     return rows
+
+
+def vector_route_keys(plane: str, args, statics, launch, needed: int,
+                      moved: int) -> dict:
+    """What the rows of the kernels with a vector route and the general
+    kernel they were first written as (#9 and #11: ``plane`` "hz" or
+    "craq") add: the route the launch took; the cold time of the general
+    route on the same inputs (the parent commit's kernel, its pointers
+    ``__restrict__``; ``harness/chain_race.py --parent`` times the
+    parent's own build); the kernel in a
+    steady stream (``harness/chain_race.py`` ``kernel_steady_ms``); and
+    the cold times of a torch copy of the bytes the inputs need and of
+    every input and output byte, which the vector routes move."""
+    from frankenpaxos_tpu_torch.harness import chain_race as race
+
+    general = race.launcher(plane, None, race.general_edit(plane), launch.packed)
+    return {
+        "launch_route": launch.route,
+        "general_device_ms_cold": device_times(general)["device_ms_cold"],
+        "steady_ms": race.kernel_steady_ms(plane, args, statics),
+        **yardstick_keys(needed),
+        **yardstick_keys(moved, "_all"),
+    }
 
 
 def _timed_vote_row(kern, plain, launch, args, statics, needed, moved, ops) -> dict:
@@ -1270,6 +1327,16 @@ DG_SHAPES = ((5, 320), (5, 1280))
 DG_BOUNDARY = ((2, 1314), (2, 1315))
 
 
+# (shape, route) of the chain kernel's checks: the main shapes, the
+# snapshot's 256 chains, ragged shapes and the largest rows the vector
+# route holds in shared memory (L*KV = 6144) on the vector route; rows of
+# 15 columns (L*KV % 4 != 0) and of 6148 (past the route's shared memory)
+# on the general route; each also on misaligned copies (general).
+CR_ROUTE_CASES = tuple((s, "vector") for s in CR_SHAPES + (
+    (256, 16, 4, 64), (7, 5, 3, 8), (40, 12, 4, 8), (3, 8, 2, 3072),
+)) + (((33, 40, 5, 3), "general"), ((3, 8, 2, 3074), "general"))
+
+
 def craq_statics(L: int, KV: int, partition: str = "none") -> dict:
     side, start, heal = {
         "none": ((), 0, -1),
@@ -1294,19 +1361,23 @@ def check_craq_dg_kernels(ctx) -> dict:
     error per plane (0)."""
     registry, cro, dgo = ctx["registry"], ctx["cro"], ctx["dgo"]
     err = {CR_PLANE: 0, DG_PLANE: 0}
-    for shape in CR_SHAPES + ((256, 16, 4, 64), (7, 5, 3, 8), (33, 40, 5, 3)):
+    for shape, route in CR_ROUTE_CASES:
         N, W, L, KV = shape
         for case in cro.EDGE_CASES:
             rng = np.random.default_rng(sum(shape))
             args = registry.to_torch(cro.example_craq_chain_args(rng, *shape, case=case), "cuda")
             for partition in ("none", "heals", "never_heals"):
                 st = craq_statics(L, KV, partition)
-                got = cro.fused_craq_chain(*args, **st)
-                torch.cuda.synchronize()
-                want = cro.reference_craq_chain(*args, **st)
-                label = f"{CR_PLANE}{shape} {case} {partition}"
-                err[CR_PLANE] = max(err[CR_PLANE], outputs_equal(label, want, got))
-        log(f"exact: {CR_PLANE}{shape} on {cro.EDGE_CASES} x 3 partitions")
+                for skew in (False, True):
+                    label = (f"{CR_PLANE}{shape} {case} {partition}"
+                             f"{' misaligned' if skew else ''}")
+                    inputs = registry.misaligned(args) if skew else args
+                    got = one_route(registry, CR_PLANE, "general" if skew else route,
+                                    label, cro.fused_craq_chain, inputs, st)
+                    want = cro.reference_craq_chain(*inputs, **st)
+                    err[CR_PLANE] = max(err[CR_PLANE], outputs_equal(label, want, got))
+        log(f"exact: {CR_PLANE}{shape} on {cro.EDGE_CASES} x 3 partitions, "
+            f"{route} route and general route (misaligned)")
     def check_dg(B, V, case, graphs, oracle):
         adj_np, com_np, act_np = graphs
         adj = torch.from_numpy(adj_np.view(np.int32).copy()).cuda()
@@ -1361,6 +1432,7 @@ def craq_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
     registry.reset_launches()
     secs = sim.timed_run(ticks)
     launches = only_launches(registry, CR_PLANE, ticks, phase)
+    routes = only_vector(registry, CR_PLANE, ticks, phase)
     sim.assert_invariants(phase)
     s = sim.stats()
     writes = s["writes_done"] - s0["writes_done"]
@@ -1382,6 +1454,7 @@ def craq_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
         "write_latency_p50_ticks": wp50, "write_latency_p99_ticks": wp99,
         "read_latency_p50_ticks": rp50, "read_latency_p99_ticks": rp99,
         "invariants": sim.invariants(), "launches": launches,
+        "route_launches": routes,
     }
     log(json.dumps(line))
     return {"line": line, "sim": sim}
@@ -1453,9 +1526,10 @@ def craq_and_bpaxos(ctx) -> dict:
     )
     run = craq_run(ctx, cr, 100, 300, "craq")
     out[CR_PLANE] = run["line"]["launches"][CR_PLANE]
+    out["cr_routes"] = run["line"]["route_launches"]
     out["cr_tick_ms"] = run["line"]["seconds"] * 1e3 / 300
     prof = profile_ticks(run["sim"].run, run["sim"].sync, 20, card, "craq_profile",
-                         kernel="craq_chain_kernel")
+                         kernel="craq_chain")
     log(json.dumps(prof))
     out["cr_profiled_ms"] = prof["kernel_device_ms_per_launch"]
     del run
@@ -1478,6 +1552,7 @@ def craq_and_bpaxos(ctx) -> dict:
     (w_heal,) = sim.get("writes_done")
     secs += sim.timed_run(40)
     launches = only_launches(registry, CR_PLANE, 100, "craq faults")
+    only_vector(registry, CR_PLANE, 100, "craq faults")
     sim.assert_invariants("craq faults")
     s = sim.stats()
     if int(sim.state.crashes) <= 0 or s["writes_done"] <= w_heal:
@@ -1567,8 +1642,9 @@ def craq_and_bpaxos(ctx) -> dict:
 def craq_dg_kernel_rows(ctx, launches: dict, max_err: dict, cd: dict) -> list:
     """Kernel rows for #11 and #12: the kernel alone, the wrapper and the
     plain version, beside the least time the card could take. The chain
-    kernel at its two main shapes (random inputs), bound by the bytes it
-    moves: the node planes in and out and every write slot's fields. The
+    kernel at its two main shapes (random inputs), bound by the bytes these
+    inputs need (``ops/craq.py`` ``craq_chain_needed_bytes``; the
+    all-bytes figure is ``bytes``), with :func:`vector_route_keys`. The
     execute kernel on the inputs of the BPaxos runs at V = 320 and 1280,
     bound by the operations these inputs need (:func:`dg_needed_ops`);
     beside it, under ``bound_ms_warshall``, the bound of the kernel's
@@ -1594,14 +1670,17 @@ def craq_dg_kernel_rows(ctx, launches: dict, max_err: dict, cd: dict) -> list:
         )
         launch, outs = cro.prepared_launch(*args, **st)
         moved = nbytes(args) + nbytes(outs)
+        needed = cro.craq_chain_needed_bytes(args, **st)
         ops = N * W * 40
         timed = _timed_vote_row(
             cro.fused_craq_chain, cro.reference_craq_chain, launch, args, st,
-            moved, moved, ops,
+            needed, moved, ops,
         )
+        timed.update(vector_route_keys("craq", args, st, launch, needed, moved))
         key = "" if i == 0 else "_100k"
         row.update({f"{k}{key}": v for k, v in timed.items()})
         row["shape" + key] = list(shape)
+    row["route_launches"] = cd["cr_routes"]
     row["library_ms"] = None
     rows.append(row)
 

@@ -104,10 +104,24 @@ def variant_source(name: str) -> str:
     return src
 
 
-def _compile(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
-    """Build each ``name: source text`` into its own shared library, one
-    ``nvcc`` each, all started together; the headers come from csrc/."""
-    out = os.path.join(_build.build_dir(), "vector_race")
+def parent_source(parent: str, name: str) -> str:
+    """``csrc/<name>`` of the checkout at ``parent``, including that
+    checkout's own common.cuh."""
+    csrc = os.path.join(parent, "frankenpaxos_tpu_torch", "csrc")
+    with open(os.path.join(csrc, name)) as f:
+        return f.read().replace(
+            '#include "common.cuh"',
+            f'#include "{os.path.abspath(os.path.join(csrc, "common.cuh"))}"')
+
+
+def compile_sources(sources: Dict[str, str], subdir: str = "vector_race",
+                    kernels=("p1_promise_vec", "grid_vote_vec")
+                    ) -> Dict[str, ctypes.CDLL]:
+    """Build each ``name: source text`` into its own shared library under
+    ``<build dir>/<subdir>``, one ``nvcc`` each, all started together; the
+    headers come from csrc/. Prints the registers and spills of the entry
+    functions whose names hold one of ``kernels``, a JSON line a build."""
+    out = os.path.join(_build.build_dir(), subdir)
     os.makedirs(out, exist_ok=True)
     procs = {}
     for name, text in sources.items():
@@ -125,19 +139,20 @@ def _compile(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
         if p.returncode:
             raise RuntimeError(f"{name}: nvcc failed:\n{log}")
         libs[name] = ctypes.CDLL(so)
-        print(json.dumps({"variant": name, "ptxas": vector_kernel_report(log)}),
+        print(json.dumps({"variant": name, "ptxas": kernel_report(log, kernels)}),
               flush=True)
     return libs
 
 
-def vector_kernel_report(log: str) -> list:
-    """The compiler's registers and spills of the vector kernels."""
+def kernel_report(log: str, kernels) -> list:
+    """The compiler's registers and spills of the entry functions whose
+    names hold one of ``kernels``."""
     lines = log.splitlines()
     return [
         " ".join(x.strip() for x in lines[i:i + 4])
         for i, line in enumerate(lines)
         if "Compiling entry function" in line
-        and ("p1_promise_vec" in line or "grid_vote_vec" in line)
+        and any(k in line for k in kernels)
     ]
 
 
@@ -146,15 +161,10 @@ def build(parent: str = "") -> Dict[str, ctypes.CDLL]:
     two source files. Keys: ``mp_<contender>`` and ``cz_<contender>``."""
     sources = {name: variant_source(name) for name in VARIANTS}
     if parent:
-        csrc = os.path.join(parent, "frankenpaxos_tpu_torch", "csrc")
         for key, name in (("mp_parent", "multipaxos.cu"),
                           ("cz_parent", "compartmentalized.cu")):
-            with open(os.path.join(csrc, name)) as f:
-                # The parent's own common.cuh sits beside its sources.
-                sources[key] = f.read().replace(
-                    '#include "common.cuh"',
-                    f'#include "{os.path.abspath(os.path.join(csrc, "common.cuh"))}"')
-    libs = _compile(sources)
+            sources[key] = parent_source(parent, name)
+    libs = compile_sources(sources)
     for lib in libs.values():
         for fn in ("fpx_mp_launch", "fpx_cz_launch"):
             if hasattr(lib, fn):

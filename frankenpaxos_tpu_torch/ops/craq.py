@@ -28,10 +28,17 @@ already part ways, and so may these two. The wrapper runs the plain
 version when its tensors lie on the CPU and launches the kernel when they
 lie on the card; it never falls back from the card to the plain version.
 
+The kernel has two routes (:func:`craq_chain_route`): the vector route,
+which every configuration of the repo takes (a CTA of whole chains, every
+load issued before any store, the rows' updates in shared memory), and
+the general kernel for the shapes it does not take.
+
 Bound: bytes. The kernel writes new node planes (the caller's are never
 updated in place), so it reads and writes ``8 * L * KV`` bytes a chain,
-plus 39 B a write slot: 11.8 MB (3.5 us at 3.35 TB/s) at the main shape
-``(N, W, L*KV) = (2500, 16, 256)``.
+plus what the write slots need (:func:`craq_chain_needed_bytes`): 11.37
+MB of the 11.8 MB all inputs and outputs hold (3.4 us at 3.35 TB/s) at
+the main shape ``(N, W, L*KV) = (2500, 16, 256)`` on its seed-7 example
+inputs.
 """
 
 from __future__ import annotations
@@ -66,14 +73,18 @@ CRAQ_CHAIN_OUTS = (
 # ---------------------------------------------------------------------------
 
 
+def _live(side, partition_start: int, partition_heal: int, t: int) -> bool:
+    """Whether the plan's cut is live at tick ``t``."""
+    return bool(side) and any(side) and t >= partition_start and (
+        partition_heal < 0 or t < partition_heal
+    )
+
+
 def _hop_fn(side, partition_start: int, partition_heal: int, t: int, device):
     """The partition hop-deferral closure (``faults.defer_to_heal``
     semantics): arrivals at cut-side nodes while the cut is live wait for
     the heal tick. Identity without side bits or outside the cut."""
-    if not (side and any(side)):
-        return lambda arrival, node: arrival
-    live = t >= partition_start and (partition_heal < 0 or t < partition_heal)
-    if not live:
+    if not _live(side, partition_start, partition_heal, t):
         return lambda arrival, node: arrival
     heal = partition_heal if partition_heal >= 0 else INF
     L = len(side)
@@ -164,6 +175,43 @@ def reference_craq_chain(
     )
 
 
+def craq_chain_needed_bytes(args, **statics) -> int:
+    """The bytes :func:`reference_craq_chain` must move on these inputs
+    (``args``: its positional arguments, ``t`` last; ``statics``: its
+    keywords): the two node planes in and out; of each write slot its
+    status, arrival, node and hop latency, its key only where a write or
+    an ack arrives, its version where the tail applies or an ack arrives,
+    its issue tick only where the tail applies; the side bits while a cut
+    is live; and every output once."""
+    (w_status, _, _, w_node, w_arrival, _, dirty, _, hop_lat, t) = args
+    t = int(t)
+    tail = statics["tail"]
+    N, W = w_status.shape
+    hop = _hop_fn(
+        statics.get("side", ()), statics.get("partition_start", 0),
+        statics.get("partition_heal", -1), t, w_status.device,
+    )
+    arrive_down = (w_status == W_DOWN) & (w_arrival == t)
+    at_tail = arrive_down & (w_node == tail)
+    at_mid = arrive_down & (w_node < tail)
+    node1 = torch.where(at_tail, tail - 1, torch.where(at_mid, w_node + 1, w_node))
+    status1 = torch.where(at_tail, torch.full_like(w_status, W_UP), w_status)
+    arrival1 = torch.where(arrive_down, hop(t + hop_lat, node1), w_arrival)
+    arrive_up = (status1 == W_UP) & (arrival1 == t)
+    n_key = int((arrive_down | arrive_up).sum())
+    n_version = int((at_tail | arrive_up).sum())
+    n_issue = int(at_tail.sum())
+    side = statics.get("side", ())
+    live = _live(side, statics.get("partition_start", 0),
+                 statics.get("partition_heal", -1), t)
+    return (
+        4 * dirty.numel() * 4  # the node planes in and out
+        + N * W * 13 + 4 * (n_key + n_version + n_issue)
+        + (len(side) if live else 0)
+        + N * W * 14  # the write-slot outputs
+    )
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
@@ -183,6 +231,49 @@ _IN_SPECS = {  # slot: (shape kind, dtype)
 }
 
 
+# The vector route's limits (csrc/craq.cu): the shared memory of its CTA
+# (two node rows a chain, kVecSharedBytes) and the 16-byte vectors of each
+# node plane a thread holds at most (kRowVecs); and the least threads of
+# its CTA, a warp. Its launch shape fills a thread's vectors where the
+# ring allows (a chip race chose it: harness/chain_race.py).
+VEC_SHARED_BYTES = 48 * 1024
+VEC_ROW_VECS = 4
+VEC_THREADS = 32
+
+
+def chain_launch_shape(W: int, LKV: int, block: int = 0) -> tuple:
+    """``(chains a CTA, threads a CTA)`` of the vector route for a ring of
+    ``W`` slots and rows of ``LKV`` columns: a chain takes a thread for
+    each of its slots and for each :data:`VEC_ROW_VECS` 16-byte vectors of
+    each node row, ``block`` threads (else at least :data:`VEC_THREADS`, a
+    whole number of warps, at most 1024) take as many chains as fit, and
+    the chains' rows fit :data:`VEC_SHARED_BYTES`."""
+    lanes = max(W, -(-LKV // (4 * VEC_ROW_VECS)), 1)
+    threads = block or min(1024, max(VEC_THREADS, -(-lanes // 32) * 32))
+    cpb = max(1, min(threads // lanes, VEC_SHARED_BYTES // max(1, 8 * LKV)))
+    return cpb, threads
+
+
+def craq_chain_route(*args, block: int = 0) -> str:
+    """The chain kernel's route for the plane's arguments (those of
+    :func:`fused_craq_chain`): "vector" when L*KV % 4 == 0, the CTA of
+    :func:`chain_launch_shape` holds a thread for each of its write slots
+    and its chains' rows in registers and shared memory, and the node
+    planes are 16-byte aligned; else "general" (any shape). The kernel
+    refuses the vector route where its conditions do not hold."""
+    W, LKV = args[0].shape[1], args[6].shape[1]
+    cpb, threads = chain_launch_shape(W, LKV, block)
+    if (
+        LKV % 4 == 0
+        and cpb * W <= threads
+        and cpb * (LKV // 4) <= threads * VEC_ROW_VECS
+        and 8 * cpb * LKV <= VEC_SHARED_BYTES
+        and registry.aligned16(args[6:8])
+    ):
+        return "vector"
+    return "general"
+
+
 @functools.lru_cache(maxsize=16)
 def _side_bits(side: tuple, device: torch.device) -> torch.Tensor:
     """The plan's side bits as a device constant (made once per plan)."""
@@ -195,9 +286,12 @@ def _craq_chain_kernel(
     tail: int, num_keys: int, side: tuple = (), partition_start: int = 0,
     partition_heal: int = -1,
 ):
-    """Check the tensors, allocate the outputs and pack the launch;
-    returns ``(launch, outputs)``. The launch loads the CUDA library, so
-    the checks run without a card."""
+    """Check the tensors, pick the route (:func:`craq_chain_route`),
+    allocate the outputs and pack the launch; returns ``(launch,
+    outputs)``. The launch loads the CUDA library, so the checks run
+    without a card; it carries ``route`` and ``packed``, the library
+    call's arguments (``harness/chain_race.py`` calls other builds of the
+    source with them)."""
     from frankenpaxos_tpu_torch.ops import _build
 
     N, W = w_status.shape
@@ -223,17 +317,17 @@ def _craq_chain_kernel(
         raise ValueError(f"{_PLANE}: tick {t} outside int32")
     if not 1 <= tail < 2**31 or not 1 <= num_keys < 2**31:
         raise ValueError(f"{_PLANE}: tail {tail} / num_keys {num_keys}")
-    threads = block if block > 0 else 256
-    if not 32 <= threads <= 1024 or threads % 32:
+    if block and (not 32 <= block <= 1024 or block % 32):
         raise ValueError(
-            f"{_PLANE}: block={threads} threads, want a multiple of 32 in "
+            f"{_PLANE}: block={block} threads, want a multiple of 32 in "
             f"32-1024"
         )
+    route = craq_chain_route(*ins.values(), block=block)
+    cpb, threads = chain_launch_shape(W, LKV, block)
+    if route == "general":  # cpb = threads / W, the kernel's own choice
+        cpb, threads = 0, block or 256
     dev = w_status.device
-    partitioned = bool(side) and any(side)
-    live = partitioned and t >= partition_start and (
-        partition_heal < 0 or t < partition_heal
-    )
+    live = _live(side, partition_start, partition_heal, t)
     heal = partition_heal if partition_heal >= 0 else INF
     ins["side"] = _side_bits(tuple(side), dev) if live else None
     num_sides = len(side) if live else 0
@@ -257,8 +351,9 @@ def _craq_chain_kernel(
             for s in _PTR_SLOTS
         ]
     )
-    ints = (ctypes.c_int * 9)(
-        N, W, LKV, num_keys, tail, t, num_sides, heal, threads
+    ints = (ctypes.c_int * 11)(
+        N, W, LKV, num_keys, tail, t, num_sides, heal, threads,
+        registry.ROUTES.index(route), cpb,
     )
 
     def launch() -> None:
@@ -270,8 +365,10 @@ def _craq_chain_kernel(
                 f"{_PLANE}: kernel launch failed: "
                 f"{lib.fpx_error_string(err).decode()} (cuda error {err})"
             )
-        registry.count_launch(_PLANE)
+        registry.count_launch(_PLANE, route)
 
+    launch.route = route
+    launch.packed = (ptrs, ints)
     order = ("o_ws", "o_wn", "o_wa", "o_dirty", "o_ver", "o_at_tail", "o_wlat")
     return launch, tuple(outs[k] for k in order)
 
@@ -284,10 +381,11 @@ def fused_craq_chain(
 ):
     """:func:`reference_craq_chain` as one CUDA kernel on the card (the
     plain version on the CPU). Replaces the Pallas ``fused_craq_chain``
-    (frankenpaxos_tpu/ops/craq.py:252). Bound by bytes: the new node
-    planes, 11.8 MB at (2500, 16, 256). Bit-exact: integer adds and maxes
-    into the chain's node row, which commute, and the ring arithmetic in
-    wrapping int32."""
+    (frankenpaxos_tpu/ops/craq.py:252), on the route of
+    :func:`craq_chain_route`. Bound by bytes: the new node planes, 11.4 MB
+    needed at (2500, 16, 256). Bit-exact: integer adds and maxes into the
+    chain's node row, which commute, and the ring arithmetic in wrapping
+    int32."""
     args = (
         w_status, w_key, w_version, w_node, w_arrival, w_issue,
         node_dirty_flat, node_version_flat, hop_lat,
@@ -305,10 +403,11 @@ def fused_craq_chain(
 
 def prepared_launch(*args, **statics) -> tuple:
     """For timing the kernel apart from its wrapper: checks the tensors
-    ``args`` (the wrapper's arguments), allocates the outputs and returns
-    ``(launch, outputs)``; each ``launch()`` runs the kernel once into
-    those outputs (and counts as a launch). On CPU tensors it runs the
-    wrapper's checks alone: only the launch needs the card."""
+    ``args`` (the wrapper's arguments), picks the route, allocates the
+    outputs and returns ``(launch, outputs)``; each ``launch()`` runs the
+    kernel once into those outputs (and counts as a launch on its route,
+    ``launch.route``). On CPU tensors it runs the wrapper's checks alone:
+    only the launch needs the card."""
     return _craq_chain_kernel(*args, **statics)
 
 

@@ -22,11 +22,17 @@ plane. The wrapper runs the plain version when its tensors lie on the
 CPU and launches the kernel when they lie on the card; it never falls
 back from the card to the plain version.
 
-Bound: a few integer ops per byte, so bound by the bytes moved. With
-every input read once, 27 B per ``[P, G, W]`` cell and 17 B per slot:
-19.1 MB (5.7 us at 3.35 TB/s) at ``(P, G, W) = (6, 3334, 32)``. The
-kernel reads a cell's latency, delivery bit, vote and vote epoch only
-where the function needs them.
+The kernel has two routes (:func:`horizontal_vote_route`): the vector
+route, which every configuration of the repo takes (four slots a pair of
+threads, one bank's rows each, 16-byte loads, every load of a row before
+its stores), and the general kernel (a thread a slot) for the shapes it
+does not take.
+
+Bound: a few integer ops per byte, so bound by the bytes moved. The bytes
+these inputs need (:func:`horizontal_vote_needed_bytes`: a cell's
+latency, delivery bit, vote and vote epoch only where the function uses
+them) are 15.35 MB at ``(P, G, W) = (6, 3334, 32)`` on the main path's
+inputs (4.6 us at 3.35 TB/s); every input and output once is 18.46 MB.
 """
 
 from __future__ import annotations
@@ -113,9 +119,62 @@ def reference_horizontal_vote(
     )
 
 
+def horizontal_vote_needed_bytes(args, *, n: int, quorum: int) -> int:
+    """The bytes :func:`reference_horizontal_vote` must move on these
+    inputs (``args``: its positional arguments, ``t`` last): of every pool
+    cell its Phase2a tick, and its vote, vote epoch and Phase2b tick where
+    no vote lands; where one lands, its delivery bit (when there is a
+    delivery plane), its latency where the reply is sent and its Phase2b
+    tick where it is dropped; of every slot its epoch and status, its
+    proposal tick only where it is newly chosen; and every output once."""
+    se, status, _, p2a, _, _, _, _, deliv, t = args
+    P, G, W = p2a.shape
+    cells, slots = P * G * W, G * W
+    bank = (torch.arange(P, device=p2a.device) >= n).to(torch.int32)
+    may = (
+        (p2a == int(t)) & (bank[:, None, None] == (se % 2)[None])
+        & (status == PROPOSED)[None]
+    )
+    n_may = int(may.sum())
+    n_send = n_may if deliv is None else int((may & deliv).sum())
+    newly = reference_horizontal_vote(*args, n=n, quorum=quorum)[5]
+    return (
+        cells * 4  # Phase2a ticks in
+        + (cells - n_may) * 7  # vote, vote epoch and Phase2b tick carried
+        + (0 if deliv is None else n_may)  # delivery bits of the votes
+        + n_send * 4 + (n_may - n_send) * 4  # latency, or Phase2b dropped
+        + cells * 11  # Phase2a, Phase2b, vote and vote epoch out
+        + slots * 3 + int(newly.sum()) * 4  # epoch, status; proposal tick
+        + slots * 10  # status, newly chosen, latency and ledger out
+    )
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
+
+# Consecutive slots a pair of threads of the vector route owns
+# (csrc/horizontal.cu kLanes), and its default threads a CTA.
+VEC_LANES = 4
+VEC_THREADS = 128
+
+
+def horizontal_vote_route(*args, block: int = 0) -> str:
+    """The vote kernel's route for the plane's arguments (those of
+    :func:`fused_horizontal_vote`): "vector" when W % VEC_LANES == 0, the
+    block is a whole number of warps up to 256 threads and every tensor is
+    16-byte aligned; else "general" (a thread a slot, any W). The kernel
+    refuses the vector route where its conditions do not hold."""
+    W = args[3].shape[2]
+    if (
+        W % VEC_LANES == 0
+        and block <= 256
+        and block % 32 == 0
+        and registry.aligned16(args)
+    ):
+        return "vector"
+    return "general"
+
 
 # Pointer slots of the kernel's argument block, in the order of the `Slot`
 # enum of csrc/horizontal.cu.
@@ -138,9 +197,12 @@ def _horizontal_vote_kernel(
     vote_epoch, p2b_lat, p2b_delivered, t, block: int = 0, *, n: int,
     quorum: int,
 ):
-    """Check the tensors, allocate the outputs and pack the launch;
-    returns ``(launch, outputs)``. The launch loads the CUDA library, so
-    the checks run without a card."""
+    """Check the tensors, pick the route (:func:`horizontal_vote_route`),
+    allocate the outputs and pack the launch; returns ``(launch,
+    outputs)``. The launch loads the CUDA library, so the checks run
+    without a card; it carries ``route`` and ``packed``, the library
+    call's arguments (``harness/chain_race.py`` calls other builds of the
+    source with them)."""
     from frankenpaxos_tpu_torch.ops import _build
 
     P, G, W = p2a_arrival.shape
@@ -171,9 +233,10 @@ def _horizontal_vote_kernel(
     t = int(t)
     if not -(2**31) <= t < 2**31:
         raise ValueError(f"{_PLANE}: tick {t} outside int32")
-    threads = block if block > 0 else 256
-    if not 32 <= threads <= 1024:
-        raise ValueError(f"{_PLANE}: block={threads} threads, want 32-1024")
+    if block and not 32 <= block <= 1024:
+        raise ValueError(f"{_PLANE}: block={block} threads, want 32-1024")
+    route = horizontal_vote_route(*ins.values(), block=block)
+    threads = block or (VEC_THREADS if route == "vector" else 256)
 
     dev = p2a_arrival.device
 
@@ -197,7 +260,9 @@ def _horizontal_vote_kernel(
             for s in _PTR_SLOTS
         ]
     )
-    ints = (ctypes.c_int * 6)(n, G, W, t, quorum, threads)
+    ints = (ctypes.c_int * 7)(
+        n, G, W, t, quorum, threads, registry.ROUTES.index(route)
+    )
 
     def launch() -> None:
         lib = _build.kernel_lib("fpx_horizontal", len(_PTR_SLOTS))
@@ -208,8 +273,10 @@ def _horizontal_vote_kernel(
                 f"{_PLANE}: kernel launch failed: "
                 f"{lib.fpx_error_string(err).decode()} (cuda error {err})"
             )
-        registry.count_launch(_PLANE)
+        registry.count_launch(_PLANE, route)
 
+    launch.route = route
+    launch.packed = (ptrs, ints)
     order = ("o_status", "o_p2a", "o_p2b", "o_voted", "o_ve", "o_newly",
              "o_lat", "o_viol")
     return launch, tuple(outs[k] for k in order)
@@ -222,10 +289,10 @@ def fused_horizontal_vote(
 ):
     """:func:`reference_horizontal_vote` as one CUDA kernel on the card
     (the plain version on the CPU). Replaces the Pallas
-    ``fused_horizontal_vote`` (frankenpaxos_tpu/ops/horizontal.py:154).
-    Bound by bytes: 27 B per pool cell and 17 B per slot with every input
-    read, 19.1 MB at (6, 3334, 32). Bit-exact: integer work only, the
-    epoch's bank by floor ``%``, the reply tick added in wrapping int32."""
+    ``fused_horizontal_vote`` (frankenpaxos_tpu/ops/horizontal.py:154),
+    on the route of :func:`horizontal_vote_route`. Bound by bytes: 15.35
+    MB needed at (6, 3334, 32). Bit-exact: integer work only, the epoch's
+    bank by floor ``%``, the reply tick added in wrapping int32."""
     args = (
         slot_epoch, status, propose_tick, p2a_arrival, p2b_arrival, voted,
         vote_epoch, p2b_lat, p2b_delivered,
@@ -240,10 +307,11 @@ def fused_horizontal_vote(
 
 def prepared_launch(*args, **statics) -> tuple:
     """For timing the kernel apart from its wrapper: checks the tensors
-    ``args`` (the wrapper's arguments), allocates the outputs and returns
-    ``(launch, outputs)``; each ``launch()`` runs the kernel once into
-    those outputs (and counts as a launch). On CPU tensors it runs the
-    wrapper's checks alone: only the launch needs the card."""
+    ``args`` (the wrapper's arguments), picks the route, allocates the
+    outputs and returns ``(launch, outputs)``; each ``launch()`` runs the
+    kernel once into those outputs (and counts as a launch on its route,
+    ``launch.route``). On CPU tensors it runs the wrapper's checks alone:
+    only the launch needs the card."""
     return _horizontal_vote_kernel(*args, **statics)
 
 

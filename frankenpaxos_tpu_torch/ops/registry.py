@@ -20,8 +20,8 @@ two per-plane kernels instead of the whole-tick kernel.
 
 Every wrapper adds one to ``LAUNCHES[plane]`` where it launches its
 kernel, and nowhere else; a kernel with more than one route (the
-phase-1 and grid-vote kernels: vector, scalar, general) also adds one to
-``ROUTE_LAUNCHES[plane][route]``. ``reset_launches`` zeroes the counts. The
+phase-1, grid-vote, horizontal vote and CRAQ chain kernels: vector,
+scalar, general) also adds one to ``ROUTE_LAUNCHES[plane][route]``. ``reset_launches`` zeroes the counts. The
 JAX package's autotune table, ``shard_lowering`` and cost-model hooks
 have no counterpart yet.
 """
@@ -92,7 +92,8 @@ LAUNCHES: Dict[str, int] = {}
 # {plane: {route: launches}}.
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {}
 # Those kernels' routes, in the order of their launchers' route codes
-# (csrc/multipaxos.cu `Route`, csrc/compartmentalized.cu fpx_cz_launch).
+# (the `Route` enums of csrc/multipaxos.cu, horizontal.cu and craq.cu;
+# csrc/compartmentalized.cu fpx_cz_launch).
 ROUTES = ("scalar", "general", "vector")
 
 

@@ -174,3 +174,85 @@ def test_kernel_checks_accept_f_over_3(shape):
     _assert_equal(jhz.reference_horizontal_vote(*_jax_args(args), **st), port)
     with pytest.raises(ValueError, match="P = 2n"):
         thz.prepared_launch(*torch_args, n=st["n"] + 1, quorum=st["quorum"])
+
+
+def _zeros(P, G, W):
+    """Zero tensors of the plane's shapes and dtypes (``t`` last)."""
+    z = torch.zeros
+    pgw = (P, G, W)
+    return [
+        z((G, W), dtype=torch.int16), z((G, W), dtype=torch.int8),
+        z((G, W), dtype=torch.int32), z(pgw, dtype=torch.int32),
+        z(pgw, dtype=torch.int32), z(pgw, dtype=torch.bool),
+        z(pgw, dtype=torch.int16), z(pgw, dtype=torch.int32),
+        z(pgw, dtype=torch.bool), 40,
+    ]
+
+
+def _odd_offset(x):
+    """A contiguous view of x's values one element past its own base."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("shape,skew,deliv,block,route", [
+    ((6, 3334, 32), None, False, 0, "vector"),  # the main path
+    ((6, 3334, 32), None, True, 0, "vector"),  # under a fault plan
+    ((6, 33334, 32), None, False, 0, "vector"),  # 100,002 acceptors
+    ((6, 40, 12), None, True, 0, "vector"),  # W = 12
+    ((6, 40, 8), None, False, 0, "vector"),  # W = 8
+    ((18, 9, 8), None, True, 0, "vector"),  # n = 9, the general n
+    ((6, 40, 6), None, True, 0, "general"),  # W % 4 != 0
+    ((6, 3334, 32), 3, True, 0, "general"),  # Phase2a one element off
+    ((6, 3334, 32), 5, False, 0, "general"),  # a byte plane one element off
+    ((6, 3334, 32), 8, True, 0, "general"),  # the delivery plane off
+    ((6, 3334, 32), None, False, 512, "general"),  # a block past 256
+    ((6, 3334, 32), None, False, 96, "vector"),  # three warps
+    ((6, 3334, 32), None, False, 100, "general"),  # a block of part warps
+])
+def test_horizontal_vote_route(shape, skew, deliv, block, route):
+    """The route the wrapper asks the kernel for, from W, the block and
+    the planes' 16-byte alignment; prepared_launch on CPU tensors takes
+    it and packs its code and threads."""
+    args = _zeros(*shape)
+    if not deliv:
+        args[8] = None
+    if skew is not None:
+        args[skew] = _odd_offset(args[skew])
+        assert args[skew].is_contiguous() and args[skew].data_ptr() % 16
+    assert thz.horizontal_vote_route(*args, block=block) == route
+    launch, _ = thz.prepared_launch(*args, block, **_statics(shape))
+    assert launch.route == route
+    ints = list(launch.packed[1])
+    assert ints[6] == registry.ROUTES.index(route)
+    assert ints[5] == (block or (thz.VEC_THREADS if route == "vector" else 256))
+
+
+def test_horizontal_vote_needed_bytes_counted_by_hand():
+    """n = 1 (P = 2), G = 1, W = 2, quorum 1. Slot 0 (epoch 0, bank 0) gets
+    a vote in row 0 whose reply lands now (latency 0), so it is newly
+    chosen; slot 1 (epoch 1, bank 1) gets a vote in row 1 whose reply is
+    dropped; the other two cells carry their vote."""
+    args = _zeros(2, 1, 2)
+    args[0][:] = torch.tensor([[0, 1]], dtype=torch.int16)
+    args[1][:] = thz.PROPOSED
+    args[2][:] = torch.tensor([[35, 36]], dtype=torch.int32)
+    args[3][:] = torch.tensor([[[40, 40]], [[thz.INF, 40]]], dtype=torch.int32)
+    args[4][:] = thz.INF
+    args[7][:] = torch.tensor([[[0, 1]], [[1, 1]]], dtype=torch.int32)
+    args[8][:] = torch.tensor([[[True, True]], [[True, False]]])
+    st = dict(n=1, quorum=1)
+    out = thz.reference_horizontal_vote(*args, **st)
+    assert out[5].tolist() == [[True, False]]
+    cells = (
+        4 * 4  # Phase2a ticks in
+        + 2 * (1 + 2 + 4)  # two cells carry vote, vote epoch, Phase2b
+        + 2  # the delivery bits of the two votes
+        + 4  # the sent reply's latency
+        + 4  # the dropped reply's carried Phase2b tick
+        + 4 * (4 + 4 + 1 + 2)  # Phase2a, Phase2b, vote, vote epoch out
+    )
+    slots = 2 * (2 + 1) + 4 + 2 * (1 + 1 + 4 + 4)  # in, proposal tick, out
+    assert thz.horizontal_vote_needed_bytes(args, **st) == cells + slots == 114
+    args[8] = None  # every reply sent: two latencies, no delivery bits
+    assert thz.horizontal_vote_needed_bytes(args, **st) == 114 - 2 == 112
