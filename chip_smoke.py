@@ -25,13 +25,18 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
    24, 32, 64, 256 and 1024 with up to four grid cells and replicas,
    scalar on a misaligned copy, at W = 12 and with six grid cells or five
    replicas, general at W = 1030 and 2048);
-   the Mencius vote kernel at (L, W, A) = (3334, 32, 3), (33334, 32, 3),
-   (7, 16, 3) and (64, 32, 5) on random, all-arrive-now and all-INF
-   inputs; the Fast MultiPaxos vote kernel at (A, G, W) = (3, 3334, 32),
-   (3, 33334, 32), (3, 7, 16), (5, 64, 32), (7, 16, 16) and (9, 16, 16)
-   on random inputs and five edge inputs (no visible vote, an
-   all-distinct census, ties, a slot at the recovery timeout, a
-   contradicted fast-committed value);
+   the Mencius vote kernel on each of its routes (``MEN_ROUTE_CASES``:
+   vector at (L, W, A) = (3334, 32, 3), (33334, 32, 3), (7, 16, 3),
+   (64, 32, 5), (4, 8, 7), (8, 4, 9) and (4, 6, 3), general at A = 11 and
+   L * W % 4 != 0 and on a misaligned copy of every case) on random,
+   all-arrive-now and all-INF inputs; the Fast MultiPaxos vote kernel on
+   each of its routes (``FMP_ROUTE_CASES``: scalar at (A, G, W) = (3,
+   3334, 32), (3, 33334, 32), (3, 7, 16), (5, 64, 32), (7, 16, 16), (9,
+   16, 16), W = 6 and an odd G * W, aligned and misaligned, and on a
+   block of part warps; general at A = 11 and 13) on random inputs and six
+   edge inputs (no visible vote, an all-distinct census, ties, a slot at
+   the recovery timeout, a contradicted fast-committed value, classic
+   latencies of 0);
 4. the MultiPaxos main path at the flagship: f=1, 3334 groups (10,002
    acceptors), W=256, K=32, latency 1-3, no drops, thrifty, retry 16,
    driven through ``TpuSimTransport`` for 100 warm-up and 300 timed
@@ -78,7 +83,8 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
     unloaded, so skips always run), W=32, K=4, skip threshold 16, latency
     1-3, retry 16, through ``mencius_batched.init_state`` / ``run_ticks``
     for 100 warm-up and 300 timed ticks: invariants, the global log, real
-    commands and skips advance, one vote launch per tick;
+    commands and skips advance, one vote launch per tick, every one on
+    the vector route (as in phases 16-17);
 16. Mencius at 100,002 acceptors (33,334 leaders, 8,334 unloaded), 50
     ticks;
 17. Mencius under a static plan (Phase2a drop 0.05, and drop 0.05,
@@ -88,7 +94,8 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
     K=2, latency 1-3, jitter 2, recovery timeout 10, retry 12, through
     ``fastmultipaxos_batched.init_state`` / ``run_ticks`` for 100 warm-up
     and 300 timed ticks: invariants, no safety violation, commands done,
-    recoveries, one vote launch per tick;
+    recoveries, one vote launch per tick, every one on the scalar route
+    (as in phases 19-20);
 19. Fast MultiPaxos at 100,002 acceptors (33,334 groups), 50 ticks;
 20. Fast MultiPaxos under the same static plan (proposer crashes), 100
     ticks: revivals as leader changes, progress after the heal;
@@ -109,10 +116,15 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
     of the bound is read from the first. #4 and #5 add
     ``copy_yardstick_ms`` (and ``_clean``), the cold times of a torch
     ``copy_`` of their bound's bytes, and #4 its cold times and bound on
-    the failover-like "sparse" inputs;
+    the failover-like "sparse" inputs. The bound of #7 and #8 is the bytes
+    the function needs (``mencius_vote_needed_bytes``,
+    ``fmp_vote_needed_bytes``); ``route_bytes`` and its copy yardstick
+    (``_route``) are what their main-path routes move;
 24-31. Horizontal MultiPaxos at 3334 groups, its churn timelines, 33,334
     groups and a fault plan; Scalog at 256 and 10,000 shards and under a
-    fault plan; both card against CPU; their kernels' rows and tick splits;
+    fault plan; both card against CPU; their kernels' rows (#10's with
+    its launch floor: the same memset and grid running a kernel that does
+    nothing, ``floor_ms_cold`` / ``_clean`` / ``_warm``) and tick splits;
 32. the repaired shapes (run in phase 3): the four MultiPaxos kernels at
     A = 11 (f = 5) and W = 2048, the grid vote at W = 2048, the FMP vote
     at A = 11, the horizontal vote at n = 9 and the Scalog cut ring at
@@ -149,15 +161,18 @@ It imports nothing of JAX and nothing of the JAX package. Phases:
     outputs differ fails the run. Its run is the six-pass kernel's main
     path: its launch count goes into the kernels line.
 
-The chain kernel (#11) and the horizontal vote kernel (#9) are held
-against their plain versions on each of their two routes
-(``CR_ROUTE_CASES``, ``HZ_ROUTE_CASES``): the vector route at every shape
-that takes it, the general kernel at the shapes that do not and on a
-misaligned copy of every case, each launch on the route its case names
-(counted by the wrapper); every main-path launch of the two kernels must
-take the vector route, and their kernel rows add the general route's
-cold time (the parent commit's kernel with ``__restrict__`` pointers),
-the steady-stream time and a torch copy of the needed and of all bytes
+The chain kernel (#11), the horizontal vote kernel (#9) and the Mencius
+vote kernel (#7) are held against their plain versions on each of their
+two routes (``CR_ROUTE_CASES``, ``HZ_ROUTE_CASES``, ``MEN_ROUTE_CASES``):
+the vector route at every shape that takes it, the general kernel at the
+shapes that do not and on a misaligned copy of every case, each launch
+on the route its case names (counted by the wrapper); every main-path
+launch of the three kernels must take the vector route. The FMP vote
+kernel (#8) is held the same way on its scalar and general routes
+(``FMP_ROUTE_CASES``), and every main-path launch of it must take the
+scalar route. The four kernels' rows add the general route's cold time
+(the kernel as first written, its pointers ``__restrict__``), the
+steady-stream time and a torch copy of the needed and of all bytes
 (``vector_route_keys``).
 The chain and execute kernels are held against their plain versions in
 phase 3: the chain kernel at eight shapes on four inputs and three
@@ -177,6 +192,7 @@ The second-to-last line is the kernels JSON, the last line the result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -437,12 +453,13 @@ def only_launches(registry, plane: str, want: int, what: str) -> dict:
     return launches
 
 
-def only_vector(registry, plane: str, want: int, what: str) -> dict:
+def only_route(registry, plane: str, want: int, what: str,
+               route: str = "vector") -> dict:
     """Raise unless every one of the ``want`` launches of ``plane`` in the
-    run took its vector route; returns the per-route counts."""
+    run took ``route``; returns the per-route counts."""
     routes = dict(registry.ROUTE_LAUNCHES.get(plane, {}))
-    if routes != {"vector": want}:
-        raise AssertionError(f"{what}: {plane} routes {routes}, want {want} vector")
+    if routes != {route: want}:
+        raise AssertionError(f"{what}: {plane} routes {routes}, want {want} {route}")
     return routes
 
 
@@ -483,6 +500,28 @@ MEN_SHAPES = ((3334, 32, 3), (33334, 32, 3))
 FMP_SHAPES = ((3, 3334, 32), (3, 33334, 32))
 
 
+# The main-path route of each vote kernel: #7's vector route (a thread per
+# 16-byte vector of cells), #8's scalar route (a thread a slot, every dense
+# load first; a race chose it over 2 and 4 slots a thread).
+MEN_ROUTE, FMP_ROUTE = "vector", "scalar"
+# (shape, route) of the Mencius vote's checks: the main shapes, a ragged
+# L, f = 2, 3 and 4, and W = 6 (L * W % 4 == 0) on the vector route; A = 11
+# and L * W % 4 != 0 on the general route; each is also held on misaligned
+# copies, which take the general route.
+MEN_ROUTE_CASES = tuple((s, MEN_ROUTE) for s in MEN_SHAPES + (
+    (7, 16, 3), (64, 32, 5), (4, 8, 7), (8, 4, 9), (4, 6, 3),
+)) + (((7, 16, 11), "general"), ((5, 3, 3), "general"))
+# (shape, block, route) of the FMP vote's checks: the main shapes, a ragged
+# G, f = 2, 3 and 4, W = 6, an odd G * W and a block of part warps (cut to
+# 96 threads) on the scalar route; A = 11 and 13 on the general route; each
+# is also held on misaligned copies (the scalar route moves 4-byte words
+# and bytes, so they keep their route).
+FMP_ROUTE_CASES = tuple((s, 0, FMP_ROUTE) for s in FMP_SHAPES + (
+    (3, 7, 16), (5, 64, 32), (7, 16, 16), (9, 16, 16), (3, 5, 6), (3, 5, 7),
+)) + (((3, 334, 32), 100, FMP_ROUTE), ((11, 20, 32), 0, "general"),
+      ((13, 7, 6), 0, "general"))
+
+
 def fmp_statics(A: int, recovery_timeout: int = 10) -> dict:
     f = (A - 1) // 2
     return dict(fq=f + (f + 1) // 2 + 1, f=f, recovery_timeout=recovery_timeout)
@@ -490,35 +529,42 @@ def fmp_statics(A: int, recovery_timeout: int = 10) -> dict:
 
 def check_vote_kernels(registry, meo, fmo) -> dict:
     """Hold the Mencius and Fast MultiPaxos vote kernels against their
-    plain versions on the card, tolerance zero: the 10k and 100k main
-    shapes, a ragged shape, f=2 (and f=3, 4 for the FMP templates), on
-    random and edge inputs. Returns the largest error per plane (0)."""
+    plain versions on the card, tolerance zero, on each of their routes
+    (``MEN_ROUTE_CASES``, ``FMP_ROUTE_CASES``; each case also on a
+    misaligned copy), on random and edge inputs, each launch on the route
+    its case names. Returns the largest error per plane (0)."""
     err = {MEN_PLANE: 0, FMP_PLANE: 0}
-    for shape in MEN_SHAPES + ((7, 16, 3), (64, 32, 5)):
+    for shape, route in MEN_ROUTE_CASES:
         for case in ("random", "all_now", "all_inf"):
             rng = np.random.default_rng(sum(shape))
             args = registry.to_torch(
                 meo.example_mencius_vote_args(rng, *shape, case=case), "cuda"
             )
-            got = meo.fused_mencius_vote(*args)
-            torch.cuda.synchronize()
-            want = meo.reference_mencius_vote(*args)
-            label = f"{MEN_PLANE}{shape} {case}"
-            err[MEN_PLANE] = max(err[MEN_PLANE], outputs_equal(label, want, got))
-            log(f"exact: {label}")
-    for shape in FMP_SHAPES + ((3, 7, 16), (5, 64, 32), (7, 16, 16), (9, 16, 16)):
+            for skew in (False, True):
+                label = f"{MEN_PLANE}{shape} {case}{' misaligned' if skew else ''}"
+                inputs = registry.misaligned(args) if skew else args
+                got = one_route(registry, MEN_PLANE, "general" if skew else route,
+                                label, meo.fused_mencius_vote, inputs, {})
+                want = meo.reference_mencius_vote(*inputs)
+                err[MEN_PLANE] = max(err[MEN_PLANE], outputs_equal(label, want, got))
+        log(f"exact: {MEN_PLANE}{shape}, {route} route and general route "
+            f"(misaligned)")
+    for shape, block, route in FMP_ROUTE_CASES:
         st = fmp_statics(shape[0])
+        kern = functools.partial(fmo.fused_fmp_vote, block=block)
         for case in fmo.EDGE_CASES:
             rng = np.random.default_rng(sum(shape))
             args = registry.to_torch(
                 fmo.example_fmp_vote_args(rng, *shape, case=case), "cuda"
             )
-            got = fmo.fused_fmp_vote(*args, **st)
-            torch.cuda.synchronize()
-            want = fmo.reference_fmp_vote(*args, **st)
-            label = f"{FMP_PLANE}{shape} {case}"
-            err[FMP_PLANE] = max(err[FMP_PLANE], outputs_equal(label, want, got))
-            log(f"exact: {label}")
+            for skew in (False, True):
+                label = f"{FMP_PLANE}{shape} {case}{' misaligned' if skew else ''}"
+                inputs = registry.misaligned(args) if skew else args
+                got = one_route(registry, FMP_PLANE, route, label, kern, inputs, st)
+                want = fmo.reference_fmp_vote(*inputs, **st)
+                err[FMP_PLANE] = max(err[FMP_PLANE], outputs_equal(label, want, got))
+        log(f"exact: {FMP_PLANE}{shape} block {block} on {fmo.EDGE_CASES}, "
+            f"{route} route, aligned and misaligned")
     return err
 
 
@@ -537,6 +583,7 @@ def mencius_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
     registry.reset_launches()
     secs = sim.timed_run(ticks)
     launches = only_launches(registry, MEN_PLANE, ticks, phase)
+    routes = only_route(registry, MEN_PLANE, ticks, phase, MEN_ROUTE)
     sim.assert_invariants(phase)
     d = dict(zip(names, (a - b for a, b in zip(sim.get(*names), before))))
     if d["executed_global"] <= 0 or d["committed_real"] <= 0 or d["skips"] <= 0:
@@ -552,7 +599,7 @@ def mencius_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
         "skips_per_tick": d["skips"] / ticks,
         "executed_global_per_tick": d["executed_global"] / ticks,
         "commit_latency_p50_ticks": p50, "commit_latency_p99_ticks": p99,
-        "launches": launches,
+        "launches": launches, "route_launches": routes,
     }
     log(json.dumps(line))
     return {"line": line, "sim": sim}
@@ -571,6 +618,7 @@ def fmp_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
     registry.reset_launches()
     secs = sim.timed_run(ticks)
     launches = only_launches(registry, FMP_PLANE, ticks, phase)
+    routes = only_route(registry, FMP_PLANE, ticks, phase, FMP_ROUTE)
     sim.assert_invariants(phase)
     s = sim.stats()
     done = s["cmds_done"] - s0["cmds_done"]
@@ -590,7 +638,7 @@ def fmp_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
         "dups": s["dups"] - s0["dups"],
         "dropped_votes": s["dropped_votes"] - s0["dropped_votes"],
         "commit_latency_p50_ticks": p50, "commit_latency_p99_ticks": p99,
-        "stats": s, "launches": launches,
+        "stats": s, "launches": launches, "route_launches": routes,
     }
     log(json.dumps(line))
     return {"line": line, "sim": sim}
@@ -612,11 +660,14 @@ def mencius_and_fmp(ctx) -> dict:
     )
     run = mencius_run(ctx, men, 100, 300, "mencius")
     out[MEN_PLANE] = run["line"]["launches"][MEN_PLANE]
+    out["men_routes"] = run["line"]["route_launches"]
     out["mencius_tick_ms"] = run["line"]["seconds"] * 1e3 / 300
-    log(json.dumps(profile_ticks(
+    prof = profile_ticks(
         run["sim"].run, run["sim"].sync, 20, card, "mencius_profile",
-        kernel="mencius_vote_kernel",
-    )))
+        kernel="mencius_vote",
+    )
+    log(json.dumps(prof))
+    out["men_profiled_ms"] = prof["kernel_device_ms_per_launch"]
     del run
     men_big = dataclasses.replace(men, num_leaders=33334, num_idle_leaders=8334)
     out["mencius_100k_tick_ms"] = (
@@ -636,6 +687,7 @@ def mencius_and_fmp(ctx) -> dict:
     at_heal = sim.get("committed_real", "executed_global")
     secs += sim.timed_run(40)
     launches = only_launches(registry, MEN_PLANE, 100, "mencius faults")
+    only_route(registry, MEN_PLANE, 100, "mencius faults", MEN_ROUTE)
     sim.assert_invariants("mencius faults")
     tel = tel_mod.summary(sim.state.telemetry)
     after = sim.get("committed_real", "executed_global")
@@ -662,11 +714,14 @@ def mencius_and_fmp(ctx) -> dict:
     )
     run = fmp_run(ctx, fmp, 100, 300, "fastmultipaxos")
     out[FMP_PLANE] = run["line"]["launches"][FMP_PLANE]
+    out["fmp_routes"] = run["line"]["route_launches"]
     out["fmp_tick_ms"] = run["line"]["seconds"] * 1e3 / 300
-    log(json.dumps(profile_ticks(
+    prof = profile_ticks(
         run["sim"].run, run["sim"].sync, 20, card, "fastmultipaxos_profile",
-        kernel="fmp_vote_kernel",
-    )))
+        kernel="fmp_vote",
+    )
+    log(json.dumps(prof))
+    out["fmp_profiled_ms"] = prof["kernel_device_ms_per_launch"]
     del run
     fmp_big = dataclasses.replace(fmp, num_groups=33334)
     out["fmp_100k_tick_ms"] = (
@@ -684,6 +739,7 @@ def mencius_and_fmp(ctx) -> dict:
     (done_heal,) = sim.get("cmds_done")
     secs += sim.timed_run(40)
     launches = only_launches(registry, FMP_PLANE, 100, "fastmultipaxos faults")
+    only_route(registry, FMP_PLANE, 100, "fastmultipaxos faults", FMP_ROUTE)
     sim.assert_invariants("fastmultipaxos faults", skip=("window_ok",))
     tel = tel_mod.summary(sim.state.telemetry)
     s = sim.stats()
@@ -804,7 +860,7 @@ def horizontal_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
     registry.reset_launches()
     secs = sim.timed_run(ticks)
     launches = only_launches(registry, HZ_PLANE, ticks, phase)
-    routes = only_vector(registry, HZ_PLANE, ticks, phase)
+    routes = only_route(registry, HZ_PLANE, ticks, phase)
     sim.assert_invariants(phase)
     s = sim.stats()
     done = s["committed"] - s0["committed"]
@@ -973,7 +1029,7 @@ def horizontal_and_scalog(ctx) -> dict:
     (at_heal,) = sim.get("committed")
     secs += sim.timed_run(40)
     launches = only_launches(registry, HZ_PLANE, 100, "horizontal faults")
-    only_vector(registry, HZ_PLANE, 100, "horizontal faults")
+    only_route(registry, HZ_PLANE, 100, "horizontal faults")
     sim.assert_invariants("horizontal faults")
     tel = tel_mod.summary(sim.state.telemetry)
     s = sim.stats()
@@ -1059,7 +1115,9 @@ def hz_sc_kernel_rows(ctx, launches: dict, max_err: dict, hs: dict) -> list:
     plain version at the main shapes, beside the least time for the bytes
     these inputs need (``ops/horizontal.py``
     ``horizontal_vote_needed_bytes``; the all-bytes figure is ``bytes``);
-    #9 with :func:`vector_route_keys`."""
+    #9 with :func:`vector_route_keys`, #10 with its launch floor
+    (``floor_ms_cold`` / ``_clean`` / ``_warm``: the same memset and grid
+    running a kernel that does nothing) and its cold time over it."""
     registry, hzo, sco = ctx["registry"], ctx["hzo"], ctx["sco"]
     rows = []
     for plane, mod, shapes, suffix in (
@@ -1103,6 +1161,17 @@ def hz_sc_kernel_rows(ctx, launches: dict, max_err: dict, hs: dict) -> list:
             timed = _timed_vote_row(kern, plain, launch, args, st, needed, moved, ops)
             if plane == HZ_PLANE:
                 timed.update(vector_route_keys("hz", args, st, launch, needed, moved))
+            else:
+                # The launch's floor: its memset and grid with a kernel
+                # that does nothing (csrc/scalog.cu
+                # fpx_scalog_floor_launch), timed the same ways.
+                floor = device_times(launch.floor)
+                timed.update(
+                    floor_ms_cold=floor["device_ms_cold"],
+                    floor_ms_clean=floor["device_ms_cold_clean"],
+                    floor_ms_warm=floor["device_ms_warm"],
+                    floor_ratio_cold=timed["device_ms_cold"] / floor["device_ms_cold"],
+                )
             key = "" if i == 0 else suffix
             row.update({f"{k}{key}": v for k, v in timed.items()})
             row["shape" + key] = list(shape)
@@ -1114,16 +1183,18 @@ def hz_sc_kernel_rows(ctx, launches: dict, max_err: dict, hs: dict) -> list:
 
 
 def vector_route_keys(plane: str, args, statics, launch, needed: int,
-                      moved: int) -> dict:
-    """What the rows of the kernels with a vector route and the general
-    kernel they were first written as (#9 and #11: ``plane`` "hz" or
-    "craq") add: the route the launch took; the cold time of the general
+                      moved: int, route_bytes: int = 0) -> dict:
+    """What the rows of the kernels with a redesigned route and the general
+    kernel they were first written as (#7, #8, #9 and #11: ``plane``
+    "men", "fmp", "hz" or "craq") add: the route the launch took; the cold time of the general
     route on the same inputs (the parent commit's kernel, its pointers
     ``__restrict__``; ``harness/chain_race.py --parent`` times the
     parent's own build); the kernel in a
     steady stream (``harness/chain_race.py`` ``kernel_steady_ms``); and
     the cold times of a torch copy of the bytes the inputs need and of
-    every input and output byte, which the vector routes move."""
+    every input and output byte; with ``route_bytes`` (#7 and #8, whose
+    routes read more than the function needs), those bytes and the cold
+    times of a copy of them (``_route``)."""
     from frankenpaxos_tpu_torch.harness import chain_race as race
 
     general = race.launcher(plane, None, race.general_edit(plane), launch.packed)
@@ -1133,6 +1204,8 @@ def vector_route_keys(plane: str, args, statics, launch, needed: int,
         "steady_ms": race.kernel_steady_ms(plane, args, statics),
         **yardstick_keys(needed),
         **yardstick_keys(moved, "_all"),
+        **({"route_bytes": route_bytes, **yardstick_keys(route_bytes, "_route")}
+           if route_bytes else {}),
     }
 
 
@@ -1151,15 +1224,20 @@ def _timed_vote_row(kern, plain, launch, args, statics, needed, moved, ops) -> d
     }
 
 
-def vote_kernel_rows(ctx, launches: dict, max_err: dict) -> list:
+def vote_kernel_rows(ctx, launches: dict, max_err: dict, mf: dict) -> list:
     """Kernel rows for #7 and #8: the kernel alone, the wrapper and the
     plain version at the 10k and 100k main shapes, beside the least time
-    for the bytes these inputs need (the kernels read a cell only where
-    the function needs it; the all-bytes figure is ``bytes``)."""
+    for the bytes the function needs on these inputs (``ops/mencius.py``
+    ``mencius_vote_needed_bytes``, ``ops/fastmultipaxos.py``
+    ``fmp_vote_needed_bytes``; the all-bytes figure is ``bytes``), with
+    :func:`vector_route_keys` (and the bytes the main-path routes move,
+    ``mencius_vote_route_bytes``, ``fmp_vote_route_bytes``), the main
+    path's route launches and the profiler's in-tick device time a
+    launch."""
     registry, meo, fmo = ctx["registry"], ctx["meo"], ctx["fmo"]
     rows = []
-    for plane, mod, shapes in (
-        (MEN_PLANE, meo, MEN_SHAPES), (FMP_PLANE, fmo, FMP_SHAPES),
+    for plane, mod, shapes, tag in (
+        (MEN_PLANE, meo, MEN_SHAPES, "men"), (FMP_PLANE, fmo, FMP_SHAPES, "fmp"),
     ):
         row = {
             "name": plane, "route": "cuda",
@@ -1167,6 +1245,8 @@ def vote_kernel_rows(ctx, launches: dict, max_err: dict) -> list:
             "replaces": registry.PLANES[plane].replaces,
             "launches": launches[plane], "launches_per_tick": 1,
             "exact": True, "max_abs_err": max_err[plane],
+            "device_ms_profiled": mf[f"{tag}_profiled_ms"],
+            "route_launches": mf[f"{tag}_routes"],
         }
         for i, shape in enumerate(shapes):
             rng = np.random.default_rng(7)
@@ -1174,36 +1254,23 @@ def vote_kernel_rows(ctx, launches: dict, max_err: dict) -> list:
                 L, W, A = shape
                 args = registry.to_torch(meo.example_mencius_vote_args(rng, *shape), "cuda")
                 st = {}
-                launch, outs = meo.prepared_launch(*args)
-                p2a, _, _, _, deliv, t = args
-                cells = L * W * A
-                arr_del = int(((p2a == t) & deliv).sum())
-                needed = cells * 9 + arr_del * 4 + nbytes(outs)
-                ops = cells * 8 + L * W * 3
+                needed = meo.mencius_vote_needed_bytes(args)
+                route_bytes = meo.mencius_vote_route_bytes(args)
+                ops = L * W * A * 8 + L * W * 3
                 kern, plain = meo.fused_mencius_vote, meo.reference_mencius_vote
             else:
                 A, G, W = shape
                 st = fmp_statics(A)
                 args = registry.to_torch(fmo.example_fmp_vote_args(rng, *shape), "cuda")
-                launch, outs = fmo.prepared_launch(*args, **st)
-                res = fmo.reference_fmp_vote(*args, **st)
-                newly, start = res[9], res[11]
-                rp2a, t = args[6], args[-1]
-                now = (~start)[None] & (rp2a == t)
-                n_start, n_new = int(start.sum()), int(newly.sum())
-                lat_slots = int((start | now.any(dim=0)).sum())
-                cells, slots = A * G * W, G * W
-                needed = (
-                    cells * 8 + slots * 13 + 4 * A * (slots - n_start)
-                    + 4 * lat_slots + 5 * (cells - int(now.sum()))
-                    + 8 * (slots - n_new) + 4 * n_new + nbytes(outs)
-                )
-                ops = slots * (6 * A * A + 10 * A + 40)
+                needed = fmo.fmp_vote_needed_bytes(args, **st)
+                route_bytes = fmo.fmp_vote_route_bytes(args, **st)
+                ops = G * W * (6 * A * A + 10 * A + 40)
                 kern, plain = fmo.fused_fmp_vote, fmo.reference_fmp_vote
-            timed = _timed_vote_row(
-                kern, plain, launch, args, st, needed,
-                nbytes(args) + nbytes(outs), ops,
-            )
+            launch, outs = mod.prepared_launch(*args, **st)
+            moved = nbytes(args) + nbytes(outs)
+            timed = _timed_vote_row(kern, plain, launch, args, st, needed, moved, ops)
+            timed.update(vector_route_keys(tag, args, st, launch, needed, moved,
+                                           route_bytes))
             suffix = "" if i == 0 else "_100k"
             row.update({f"{k}{suffix}": v for k, v in timed.items()})
             row["shape" + suffix] = list(shape)
@@ -1432,7 +1499,7 @@ def craq_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
     registry.reset_launches()
     secs = sim.timed_run(ticks)
     launches = only_launches(registry, CR_PLANE, ticks, phase)
-    routes = only_vector(registry, CR_PLANE, ticks, phase)
+    routes = only_route(registry, CR_PLANE, ticks, phase)
     sim.assert_invariants(phase)
     s = sim.stats()
     writes = s["writes_done"] - s0["writes_done"]
@@ -1552,7 +1619,7 @@ def craq_and_bpaxos(ctx) -> dict:
     (w_heal,) = sim.get("writes_done")
     secs += sim.timed_run(40)
     launches = only_launches(registry, CR_PLANE, 100, "craq faults")
-    only_vector(registry, CR_PLANE, 100, "craq faults")
+    only_route(registry, CR_PLANE, 100, "craq faults")
     sim.assert_invariants("craq faults")
     s = sim.stats()
     if int(sim.state.crashes) <= 0 or s["writes_done"] <= w_heal:
@@ -2314,7 +2381,7 @@ def main() -> int:
     registry.reset_launches()
     secs = sim.timed_run(300)
     launches = only_launches(registry, cz_plane, 300, "compartmentalized")
-    cz_routes = only_vector(registry, cz_plane, 300, "compartmentalized")
+    cz_routes = only_route(registry, cz_plane, 300, "compartmentalized")
     sim.assert_invariants("compartmentalized")
     committed = int(sim.state.committed) - c0
     writes = int(sim.state.writes_done) - w0
@@ -2353,7 +2420,7 @@ def main() -> int:
     launches = dict(registry.LAUNCHES)
     if launches[cz_plane] != 100:
         raise AssertionError(f"compartmentalized faults launches: {launches}")
-    only_vector(registry, cz_plane, 100, "compartmentalized faults+reads")
+    only_route(registry, cz_plane, 100, "compartmentalized faults+reads")
     sim.assert_invariants("compartmentalized faults+reads")
     tel = telemetry_mod.summary(sim.state.telemetry)
     reads = int(sim.state.reads_done)
@@ -2408,7 +2475,7 @@ def main() -> int:
         n for k, n in launches.items() if k not in want
     ):
         raise AssertionError(f"failover launches: {launches}")
-    p1_routes = only_vector(registry, p1_plane, 600, "failover")
+    p1_routes = only_route(registry, p1_plane, 600, "failover")
     assert_invariants(tr, "failover")
     stats = tr.stats()
     committed = tr.committed() - c0
@@ -2711,7 +2778,7 @@ def main() -> int:
         "rest_ms": failover_tick_ms - rows[2]["ms"] - 2 * rows[3]["ms"],
     }))
 
-    vote_rows = vote_kernel_rows(ctx, main_launches, max_err)
+    vote_rows = vote_kernel_rows(ctx, main_launches, max_err, mf)
     rows += vote_rows
     men_sweep_ms = time_ms(
         lambda: prng.bits(prng.PRNGKey(0), MEN_SHAPES[0], "cuda"), reps=10

@@ -41,7 +41,9 @@
 // Bound. Bytes: the committing cuts' rows (4 B per shard each),
 // last_committed_cut in and new_cut out (8 B per shard), and ~30 B per ring
 // slot. At (P, S) = (8, 10000) with every cut committing, 0.40 MB: 0.12 us
-// at 3.35 TB/s. The kernel sits at launch latency.
+// at 3.35 TB/s. No launch is that short: the launch is a memset and a
+// grid, and fpx_scalog_floor_launch runs the same two with a kernel that
+// does nothing, the floor this plane's time is held against.
 
 #include "common.cuh"
 
@@ -159,19 +161,12 @@ __global__ void scalog_cut_commit_kernel(const Args a) {
   }
 }
 
-}  // namespace
+// A kernel that does nothing: the launch floor of the cut-commit launch.
+__global__ void scalog_empty_kernel(const Args) {}
 
-extern "C" {
-
-// Number of pointer slots the caller must pass (a layout check).
-int fpx_scalog_num_slots() { return NUM_SLOTS; }
-
-// Launch the cut-commit kernel: zero recs on the stream, then run the grid
-// over shards. ptrs holds NUM_SLOTS device pointers; ints = {P, S, t,
-// threads per block}. P <= 32 runs the one-ballot kernel, any larger P the
-// wide one; threads must be a multiple of 32. Returns the CUDA error of the
-// launch (0 = launched). Does not synchronise.
-int fpx_scalog_launch(void* const* ptrs, const int* ints, void* stream) {
+// Zero recs on the stream, then run the grid over shards: the cut-commit
+// kernel, or (empty) the empty kernel on the same grid.
+int launch(void* const* ptrs, const int* ints, void* stream, bool empty) {
   Args a;
   for (int i = 0; i < NUM_SLOTS; ++i) a.p[i] = ptrs[i];
   a.P = ints[0];
@@ -188,7 +183,9 @@ int fpx_scalog_launch(void* const* ptrs, const int* ints, void* stream) {
   size_t blocks = (static_cast<size_t>(a.S) + threads - 1) / threads;
   if (blocks == 0) blocks = 1;  // CTA 0 writes the [P]-space outputs
   if (blocks > 0x7fffffffu) return cudaErrorInvalidValue;
-  if (a.P <= kMaxP) {
+  if (empty) {
+    scalog_empty_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(a);
+  } else if (a.P <= kMaxP) {
     scalog_cut_commit_kernel<false>
         <<<static_cast<unsigned>(blocks), threads, 0, st>>>(a);
   } else {
@@ -203,6 +200,30 @@ int fpx_scalog_launch(void* const* ptrs, const int* ints, void* stream) {
         <<<static_cast<unsigned>(blocks), threads, shmem, st>>>(a);
   }
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of pointer slots the caller must pass (a layout check).
+int fpx_scalog_num_slots() { return NUM_SLOTS; }
+
+// Launch the cut-commit kernel: zero recs on the stream, then run the grid
+// over shards. ptrs holds NUM_SLOTS device pointers; ints = {P, S, t,
+// threads per block}. P <= 32 runs the one-ballot kernel, any larger P the
+// wide one; threads must be a multiple of 32. Returns the CUDA error of the
+// launch (0 = launched). Does not synchronise.
+int fpx_scalog_launch(void* const* ptrs, const int* ints, void* stream) {
+  return launch(ptrs, ints, stream, false);
+}
+
+// The launch floor of fpx_scalog_launch on the same arguments: the same
+// memset of recs and a grid of the same shape, running a kernel that does
+// nothing (the least time any launch of this plane can take). It writes
+// only recs.
+int fpx_scalog_floor_launch(void* const* ptrs, const int* ints, void* stream) {
+  return launch(ptrs, ints, stream, true);
 }
 
 }  // extern "C"

@@ -1,22 +1,27 @@
-"""Race the vector routes of the CRAQ chain kernel (#11, ``csrc/craq.cu``)
-and the Horizontal vote kernel (#9, ``csrc/horizontal.cu``) on the card
-against the kernels they were first written as:
+"""Race the redesigned routes of the CRAQ chain kernel (#11,
+``csrc/craq.cu``), the Horizontal vote kernel (#9,
+``csrc/horizontal.cu``), the Mencius vote kernel (#7, ``csrc/mencius.cu``)
+and the Fast MultiPaxos vote kernel (#8, ``csrc/fastmultipaxos.cu``) on
+the card against the kernels they were first written as:
 
     python -m frankenpaxos_tpu_torch.harness.chain_race [--reps 5] [--parent DIR]
+        [--planes craq hz men fmp]
 
 The cases: each plane at its main shape and at ten times it, on inputs
 drawn from seed 7 as ``chip_smoke.py``'s kernel rows draw them (the chain
 plane at (N, W, L, KV) = (2500, 16, 4, 64) and (25000, 16, 4, 64), the
-vote plane at (P, G, W) = (6, 3334, 32) and (6, 33334, 32) without a
-delivery plane), and on the arguments it is given at tick 100 of
-``chip_smoke.py``'s CRAQ and Horizontal runs (the same configs and seed,
-run here for 100 ticks on the card, the plane's call of the next tick
-caught).
+horizontal vote plane at (P, G, W) = (6, 3334, 32) and (6, 33334, 32)
+without a delivery plane, the Mencius plane at (L, W, A) = (3334, 32, 3)
+and (33334, 32, 3), the FMP plane at (A, G, W) = (3, 3334, 32) and (3,
+33334, 32)), and on the arguments it is given at tick 100 of
+``chip_smoke.py``'s CRAQ, Horizontal, Mencius and Fast MultiPaxos runs
+(the same configs and seed, run here for 100 ticks on the card, the
+plane's call of the next tick caught).
 
 The contenders of each case, all writing the same output tensors:
 
 * ``kernel``: the committed kernel on the route its wrapper picks (the
-  vector route in every case);
+  vector route in every case; for #8 the scalar route);
 * ``restrict``: the committed general route on the same pointers: the
   kernel as first written, its pointers ``__restrict__``, so that the
   compiler may move a load above an earlier store;
@@ -27,13 +32,16 @@ The contenders of each case, all writing the same output tensors:
 * other launch shapes of the committed vector route: the chain kernel
   with 1 chain a CTA of 32 threads (``c1t32``, two 16-byte vectors of
   each row a thread), 4 chains a CTA of 64 (``c4t64``) and of 128
-  (``c4t128``) and 8 of 128 (``c8t128``); the vote kernel with 64 and
-  256 threads a CTA (``t64``, ``t256``).
+  (``c4t128``) and 8 of 128 (``c8t128``); the horizontal and FMP vote
+  kernels with 64 and 256 threads a CTA (``t64``, ``t256``; the Mencius
+  vector route's CTA is 32 * A threads).
 
 The races that chose the committed routes also held variants whose code
-is gone (the vote kernel with one thread for both banks, every latency
-and proposal tick read with the rest, 2 or 8 slots a thread, an early
-return before the loads); ``PERF.md`` keeps their times.
+is gone (the horizontal vote kernel with one thread for both banks, every
+latency and proposal tick read with the rest, 2 or 8 slots a thread, an
+early return before the loads; the Mencius kernel with a thread a slot
+quad; the FMP kernel with 2 or 4 slots a thread and with the classic
+Phase2a rows read in the second trip); ``PERF.md`` keeps their times.
 
 Every contender's outputs are first checked bit for bit against the plain
 version (each output filled with a sentinel before its launch). Then each
@@ -43,8 +51,9 @@ leaves the L2 dirty, cold after one that leaves it clean, warm), and once
 in a steady stream (``steady_ms``, over copies of the inputs four times
 the L2). One JSON line a case: the card, each contender's times and
 medians, the least time for the bytes the inputs need (the bound), and a
-torch copy of those bytes and of every input and output byte (what the
-vector routes move) timed the same ways.
+torch copy of those bytes and of every input and output byte timed the
+same ways; for #7 and #8 also the bytes their routes move
+(``route_bytes``, more than the function needs) and a copy of them.
 
 Needs the card; it writes nothing but the builds.
 """
@@ -72,10 +81,16 @@ from frankenpaxos_tpu_torch.harness.vector_race import (
 )
 from frankenpaxos_tpu_torch.ops import _build, registry
 from frankenpaxos_tpu_torch.ops import craq as cro
+from frankenpaxos_tpu_torch.ops import fastmultipaxos as fmo
 from frankenpaxos_tpu_torch.ops import horizontal as hzo
+from frankenpaxos_tpu_torch.ops import mencius as meo
 
-CR_SHAPES = {"craq_main": (2500, 16, 4, 64), "craq_10x": (25000, 16, 4, 64)}
-HZ_SHAPES = {"hz_main": (6, 3334, 32), "hz_10x": (6, 33334, 32)}
+SHAPES = {
+    "craq": {"craq_main": (2500, 16, 4, 64), "craq_10x": (25000, 16, 4, 64)},
+    "hz": {"hz_main": (6, 3334, 32), "hz_10x": (6, 33334, 32)},
+    "men": {"men_main": (3334, 32, 3), "men_10x": (33334, 32, 3)},
+    "fmp": {"fmp_main": (3, 3334, 32), "fmp_10x": (3, 33334, 32)},
+}
 TICK = 100
 GENERAL = registry.ROUTES.index("general")
 # plane: (ops module, plain version, needed bytes, library entry prefix,
@@ -85,15 +100,26 @@ PLANES = {
              "fpx_craq", "craq.cu"),
     "hz": (hzo, hzo.reference_horizontal_vote,
            hzo.horizontal_vote_needed_bytes, "fpx_horizontal", "horizontal.cu"),
+    "men": (meo, meo.reference_mencius_vote, meo.mencius_vote_needed_bytes,
+            "fpx_mencius", "mencius.cu"),
+    "fmp": (fmo, fmo.reference_fmp_vote, fmo.fmp_vote_needed_bytes,
+            "fpx_fmp", "fastmultipaxos.cu"),
 }
+# The bytes the routes of #7 and #8 move, where they read more than the
+# function needs.
+ROUTE_BYTES = {"men": meo.mencius_vote_route_bytes,
+               "fmp": fmo.fmp_vote_route_bytes}
+# The launch integers of each plane's threads a CTA and route code.
+THREADS_ROUTE = {"craq": (8, 9), "hz": (5, 6), "men": (4, 5), "fmp": (7, 8)}
 
 
-def build_parent(parent: str) -> Dict[str, ctypes.CDLL]:
-    """The two source files of the checkout at ``parent``, built as the
-    race's ``parent`` contenders: ``{plane: library}``."""
+def build_parent(parent: str, planes) -> Dict[str, ctypes.CDLL]:
+    """The source files of ``planes`` in the checkout at ``parent``, built
+    as the race's ``parent`` contenders: ``{plane: library}``."""
     libs = compile_sources(
-        {plane: parent_source(parent, p[4]) for plane, p in PLANES.items()},
-        "chain_race", ("craq_chain", "horizontal_vote"))
+        {plane: parent_source(parent, PLANES[plane][4]) for plane in planes},
+        "chain_race", ("craq_chain", "horizontal_vote", "mencius_vote",
+                       "fmp_vote"))
     for plane, lib in libs.items():
         getattr(lib, f"{PLANES[plane][3]}_launch").restype = ctypes.c_int
     return libs
@@ -113,18 +139,20 @@ def _set(at: Dict[int, int]) -> Callable[[list], list]:
 def general_edit(plane: str) -> Callable[[list], list]:
     """The integer edit that sends a launch to the general route, at the
     256 threads a CTA its wrapper gives it."""
-    if plane == "craq":
-        return _set({8: 256, 9: GENERAL})
-    return _set({5: 256, 6: GENERAL})
+    threads, route = THREADS_ROUTE[plane]
+    return _set({threads: 256, route: GENERAL})
 
 
 def contenders(plane: str, parents) -> Dict[str, tuple]:
     """``{name: (library or None for the committed one, integer edit)}``:
     how each contender runs on a launch's packed pointers and integers
     (the chain kernel's are {N, W, L*KV, KV, tail, t, sides, heal,
-    threads, route, chains a CTA}, the vote kernel's {n, G, W, t,
-    quorum, threads, route})."""
+    threads, route, chains a CTA}, the horizontal vote kernel's {n, G, W,
+    t, quorum, threads, route}, the Mencius kernel's {L, W, A, t, threads,
+    route}, the FMP kernel's {A, G, W, t, fq, f, recovery_timeout,
+    threads, route})."""
     same, general = _set({}), general_edit(plane)
+    threads = THREADS_ROUTE[plane][0]
     if plane == "craq":
         out = {
             "kernel": (None, same), "restrict": (None, general),
@@ -133,9 +161,12 @@ def contenders(plane: str, parents) -> Dict[str, tuple]:
             "c4t128": (None, _set({8: 128, 10: 4})),
             "c8t128": (None, _set({8: 128, 10: 8})),
         }
+    elif plane == "men":  # its vector route runs 32 * A threads a CTA
+        out = {"kernel": (None, same), "restrict": (None, general)}
     else:
         out = {"kernel": (None, same), "restrict": (None, general),
-               "t64": (None, _set({5: 64})), "t256": (None, _set({5: 256}))}
+               "t64": (None, _set({threads: 64})),
+               "t256": (None, _set({threads: 256}))}
     if plane in parents:
         out["parent"] = (parents[plane], general)
     return out
@@ -163,8 +194,13 @@ def _statics_of(plane: str, shape) -> dict:
     if plane == "craq":
         N, W, L, KV = shape
         return dict(tail=L - 1, num_keys=KV)
-    n = shape[0] // 2
-    return dict(n=n, quorum=(n - 1) // 2 + 1)
+    if plane == "hz":
+        n = shape[0] // 2
+        return dict(n=n, quorum=(n - 1) // 2 + 1)
+    if plane == "fmp":
+        f = (shape[0] - 1) // 2
+        return dict(fq=f + (f + 1) // 2 + 1, f=f, recovery_timeout=10)
+    return {}
 
 
 def drawn_case(plane: str, shape) -> tuple:
@@ -172,38 +208,60 @@ def drawn_case(plane: str, shape) -> tuple:
     ``chip_smoke.py``'s kernel rows draw them (no partition; the vote
     plane without a delivery plane, as the healthy tick passes)."""
     rng = np.random.default_rng(7)
-    if plane == "craq":
-        args = registry.to_torch(cro.example_craq_chain_args(rng, *shape), "cuda")
-    else:
+    if plane == "hz":
         args = list(registry.to_torch(
             hzo.example_horizontal_vote_args(rng, *shape), "cuda"))
         args[8] = None
         args = tuple(args)
+    else:
+        make = {"craq": cro.example_craq_chain_args,
+                "men": meo.example_mencius_vote_args,
+                "fmp": fmo.example_fmp_vote_args}[plane]
+        args = registry.to_torch(make(rng, *shape), "cuda")
     return args, _statics_of(plane, shape)
+
+
+def tick_config(plane: str):
+    """``(backend module, config, plane name)`` of ``chip_smoke.py``'s
+    main run of the plane."""
+    if plane == "craq":
+        from frankenpaxos_tpu_torch.tpu import craq_batched as mod
+
+        return mod, mod.BatchedCraqConfig(
+            num_chains=2500, chain_len=4, num_keys=64, window=16,
+            writes_per_tick=2, reads_per_tick=4, read_window=32, lat_min=1,
+            lat_max=3,
+        ), "craq_chain"
+    if plane == "hz":
+        from frankenpaxos_tpu_torch.tpu import horizontal_batched as mod
+
+        return mod, mod.BatchedHorizontalConfig(
+            f=1, num_groups=3334, window=32, slots_per_tick=2, alpha=16,
+            lat_min=1, lat_max=3, reconfigure_every=50,
+        ), "horizontal_vote"
+    if plane == "men":
+        from frankenpaxos_tpu_torch.tpu import mencius_batched as mod
+
+        return mod, mod.BatchedMenciusConfig(
+            f=1, num_leaders=3334, window=32, slots_per_tick=4,
+            skip_threshold=16, lat_min=1, lat_max=3, retry_timeout=16,
+            num_idle_leaders=834,
+        ), "mencius_vote"
+    from frankenpaxos_tpu_torch.tpu import fastmultipaxos_batched as mod
+
+    return mod, mod.BatchedFastMultiPaxosConfig(
+        f=1, num_groups=3334, window=32, cmd_window=32, cmds_per_tick=2,
+        lat_min=1, lat_max=3, jitter=2, recovery_timeout=10, retry_timeout=12,
+    ), "fastmultipaxos_vote"
 
 
 def tick_case(plane: str) -> tuple:
     """``(args, statics)`` the plane is called with at tick :data:`TICK`
-    of ``chip_smoke.py``'s CRAQ (2,500 chains) or Horizontal (3334
-    groups, churning) run: seed 0, the first :data:`TICK` ticks as its
-    warm-up segment, the plane's call in the first tick of the next."""
-    if plane == "craq":
-        from frankenpaxos_tpu_torch.tpu import craq_batched as mod
-
-        name = "craq_chain"
-        cfg = mod.BatchedCraqConfig(
-            num_chains=2500, chain_len=4, num_keys=64, window=16,
-            writes_per_tick=2, reads_per_tick=4, read_window=32, lat_min=1,
-            lat_max=3,
-        )
-    else:
-        from frankenpaxos_tpu_torch.tpu import horizontal_batched as mod
-
-        name = "horizontal_vote"
-        cfg = mod.BatchedHorizontalConfig(
-            f=1, num_groups=3334, window=32, slots_per_tick=2, alpha=16,
-            lat_min=1, lat_max=3, reconfigure_every=50,
-        )
+    of ``chip_smoke.py``'s run of its backend (CRAQ at 2,500 chains,
+    Horizontal at 3334 groups, churning, Mencius and Fast MultiPaxos at
+    10,002 acceptors): seed 0, the first :data:`TICK` ticks as its warm-up
+    segment, the plane's call in the first tick of the next."""
+    mod, cfg, name = tick_config(plane)
     key = prng.PRNGKey(0)
     state, t = mod.run_ticks(cfg, mod.init_state(cfg, device="cuda"), 0, TICK,
                              prng.fold_in(key, 0))
@@ -268,15 +326,20 @@ def race_case(plane: str, case: str, args, statics, parents, reps: int) -> dict:
         name: steady_ms([launcher(plane, lib, edit, c[0]) for c in copies])
         for name, (lib, edit) in kinds.items()
     }
+    route = {}
+    if plane in ROUTE_BYTES:
+        moved = ROUTE_BYTES[plane](args, **statics)
+        route = {"route_bytes": moved, "copy_route_ms": copy_times(moved)}
     return {
         "case": case, "plane": plane, "route": launch.route,
-        "shape": [int(d) for d in (args[0].shape if plane == "craq" else args[3].shape)],
+        "shape": [int(d) for d in (args[3] if plane == "hz" else args[0]).shape],
         "t": int(args[-1]),
         "bound_ms": needed / HBM_BYTES_PER_S * 1e3, "bound_bytes": needed,
         "all_bytes": every, "exact": True,
         # The yardsticks: a torch copy that reads and writes the bytes the
         # inputs need, and every input and output byte, timed the same ways.
         "copy_needed_ms": copy_times(needed), "copy_all_ms": copy_times(every),
+        **route,
         "steady_ms": steady,
         "median_ms": {name: {k: statistics.median(v) for k, v in t.items()}
                       for name, t in times.items()},
@@ -288,15 +351,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--parent", default="", help="root of another checkout")
+    ap.add_argument("--planes", nargs="+", choices=list(PLANES),
+                    default=list(PLANES))
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chain_race: no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
-    parents = build_parent(opts.parent) if opts.parent else {}
+    parents = build_parent(opts.parent, opts.planes) if opts.parent else {}
     cases = []
-    for plane, shapes in (("craq", CR_SHAPES), ("hz", HZ_SHAPES)):
-        for case, shape in shapes.items():
+    for plane in opts.planes:
+        for case, shape in SHAPES[plane].items():
             cases.append((plane, case, *drawn_case(plane, shape)))
         cases.append((plane, f"{plane}_tick", *tick_case(plane)))
     for plane, case, args, statics in cases:

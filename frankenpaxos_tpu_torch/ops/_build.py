@@ -166,6 +166,8 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int),  # ints
                 ctypes.c_void_p,  # stream
             ]
+        lib.fpx_scalog_floor_launch.restype = ctypes.c_int
+        lib.fpx_scalog_floor_launch.argtypes = lib.fpx_scalog_launch.argtypes
         lib.fpx_error_string.restype = ctypes.c_char_p
         lib.fpx_error_string.argtypes = [ctypes.c_int]
         _LIB = lib

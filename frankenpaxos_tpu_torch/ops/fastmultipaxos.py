@@ -21,10 +21,23 @@ reference twin, with its outputs and dtypes. The wrapper runs it when its
 tensors lie on the CPU and launches the kernel when they lie on the card;
 it never falls back from the card to the plain version.
 
-Bound: a few dozen integer ops per slot against ~130 B per slot, so
-bound by the bytes moved: 26 B per ``[A, G, W]`` cell and 54 B per
-``[G, W]`` slot with every input read once, 14.1 MB (4.2 us at 3.35 TB/s)
-at ``(A, G, W) = (3, 3334, 32)``.
+The kernel has two routes (:func:`fmp_vote_route`): the scalar route,
+which every A in 3-9 takes (a thread a slot, A in registers, every dense
+load before any store, the latencies in a second trip only where they
+are used), and the general kernel (the kernel as first written: a thread
+a slot, loads interleaved with stores) for A outside 3-9, with A at run
+time.
+
+Bound: a few dozen integer ops per slot against ~120 B per slot, so
+bound by the bytes moved. The bytes the function needs
+(:func:`fmp_vote_needed_bytes`: no classic Phase2a where recovery
+overwrites it, no classic Phase2b or vote bit where a classic Phase2a
+lands now, no carried chosen value or replica arrival where the slot is
+chosen now, each latency only where it is used; every output) are 13.0
+MB at ``(A, G, W) = (3, 3334, 32)`` on the kernels line's inputs (3.9 us
+at 3.35 TB/s). The scalar route reads every dense field
+(:func:`fmp_vote_route_bytes`, 13.4 MB); every input and output once is
+14.1 MB.
 """
 
 from __future__ import annotations
@@ -159,9 +172,87 @@ def reference_fmp_vote(
     )
 
 
+def fmp_vote_needed_bytes(args, **statics) -> int:
+    """The bytes the plain version's outputs need on these inputs
+    (``args``: its positional arguments, ``t`` last; ``statics``: fq, f,
+    recovery_timeout): every vote and seen tick; every slot's status,
+    open tick, fast-committed value and classic value; a classic Phase2a
+    tick where recovery does not start; a classic Phase2b tick and vote
+    bit where no classic Phase2a lands now; the carried chosen value and
+    replica arrival where the slot is not chosen now; the classic latency
+    where recovery starts or a classic Phase2a lands now, the reply
+    latency where the slot is chosen now; every output once. The outputs
+    depend on no other input cell (the poison test of
+    ``tests/test_torch_ops_fastmultipaxos.py``)."""
+    A, G, W = args[0].shape
+    cells, slots = A * G * W, G * W
+    out = reference_fmp_vote(*args, **statics)
+    start, newly = out[11], out[9]
+    now = fmp_rv_now(args, start)
+    n_start, n_now, n_new = int(start.sum()), int(now.sum()), int(newly.sum())
+    return (
+        cells * 8 + slots * 13  # votes, seen ticks; status, open, fc, rvv
+        + 4 * A * (slots - n_start)  # classic Phase2a ticks
+        + 5 * (cells - n_now)  # classic Phase2b ticks and vote bits
+        + 8 * (slots - n_new)  # carried chosen values, replica arrivals
+        + 4 * int((start | now.any(dim=0)).sum()) + 4 * n_new  # latencies
+        + cells * 9 + slots * 25  # every output
+    )
+
+
+def fmp_rv_now(args, start):
+    """``[A, G, W]``: where a classic Phase2a lands at ``t`` (the carried
+    one where recovery does not start, the recovery's at a classic
+    latency of 0 where it does)."""
+    t = int(args[-1])
+    return torch.where(start[None], (args[11] == 0)[None], args[6] == t)
+
+
+def fmp_vote_route_bytes(args, **statics) -> int:
+    """The bytes the kernel's scalar route moves on these inputs (as
+    :func:`fmp_vote_needed_bytes`): every dense input field (the classic
+    Phase2a and Phase2b ticks, vote bits, chosen values and replica
+    arrivals where the function does not need them too), the latencies
+    where the function needs them, every output."""
+    A, G, W = args[0].shape
+    cells, slots = A * G * W, G * W
+    out = reference_fmp_vote(*args, **statics)
+    start, newly = out[11], out[9]
+    rv_lat = start | fmp_rv_now(args, start).any(dim=0)
+    return (
+        cells * 17 + slots * 21  # the dense fields in
+        + 4 * int(rv_lat.sum()) + 4 * int(newly.sum())  # the latencies
+        + cells * 9 + slots * 25  # every output
+    )
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
+
+# The acceptor counts the scalar route is built for (csrc/fastmultipaxos.cu)
+# and its default threads a CTA.
+SCALAR_A = (3, 5, 7, 9)
+SCALAR_THREADS = 128
+
+
+def fmp_vote_route(*args) -> str:
+    """The vote kernel's route for the plane's arguments (those of
+    :func:`fused_fmp_vote`): "scalar" (a thread a slot, every dense load
+    before any store) when A is in SCALAR_A; else "general" (the kernel as
+    first written, A at run time). The kernel refuses the scalar route
+    where A is not in SCALAR_A."""
+    return "scalar" if args[0].shape[0] in SCALAR_A else "general"
+
+
+def _threads(route: str, block: int) -> int:
+    """Threads a CTA: the scalar route's ``block`` cut to whole warps up
+    to 256 (its launch bounds; SCALAR_THREADS unless given), the general
+    route's ``block`` (256 unless given)."""
+    if route == "general":
+        return block or 256
+    return min(256, block // 32 * 32) if block else SCALAR_THREADS
+
 
 # Pointer slots of the kernel's argument block, in the order of the `Slot`
 # enum of csrc/fastmultipaxos.cu.
@@ -188,9 +279,12 @@ def _fmp_vote_kernel(
     rv_lat, reply_lat, t, block: int = 0, *, fq: int, f: int,
     recovery_timeout: int,
 ):
-    """Check the tensors, allocate the outputs and pack the launch;
-    returns ``(launch, outputs)``. The launch loads the CUDA library, so
-    the checks run without a card."""
+    """Check the tensors, pick the route (:func:`fmp_vote_route`),
+    allocate the outputs and pack the launch; returns ``(launch,
+    outputs)``. The launch loads the CUDA library, so the checks run
+    without a card; it carries ``route`` and ``packed``, the library
+    call's arguments (``harness/chain_race.py`` calls other builds of the
+    source with them)."""
     from frankenpaxos_tpu_torch.ops import _build
 
     A, G, W = vote_value.shape
@@ -215,9 +309,10 @@ def _fmp_vote_kernel(
     t = int(t)
     if not -(2**31) <= t < 2**31:
         raise ValueError(f"{_PLANE}: tick {t} outside int32")
-    threads = block if block > 0 else 256
-    if not 32 <= threads <= 1024:
-        raise ValueError(f"{_PLANE}: block={threads} threads, want 32-1024")
+    if block and not 32 <= block <= 1024:
+        raise ValueError(f"{_PLANE}: block={block} threads, want 32-1024")
+    route = fmp_vote_route(*ins.values())
+    threads = _threads(route, block)
 
     dev = vote_value.device
 
@@ -243,7 +338,10 @@ def _fmp_vote_kernel(
     ptrs = (ctypes.c_void_p * len(_PTR_SLOTS))(
         *[tensors[s].data_ptr() for s in _PTR_SLOTS]
     )
-    ints = (ctypes.c_int * 8)(A, G, W, t, fq, f, recovery_timeout, threads)
+    ints = (ctypes.c_int * 9)(
+        A, G, W, t, fq, f, recovery_timeout, threads,
+        registry.ROUTES.index(route),
+    )
 
     def launch() -> None:
         lib = _build.kernel_lib("fpx_fmp", len(_PTR_SLOTS))
@@ -254,8 +352,10 @@ def _fmp_vote_kernel(
                 f"{_PLANE}: kernel launch failed: "
                 f"{lib.fpx_error_string(err).decode()} (cuda error {err})"
             )
-        registry.count_launch(_PLANE)
+        registry.count_launch(_PLANE, route)
 
+    launch.route = route
+    launch.packed = (ptrs, ints)
     order = ("o_status", "o_ot", "o_fc", "o_rvv", "o_rp2a", "o_rp2b",
              "o_rvoted", "o_cv", "o_ra", "o_newly", "o_fast", "o_rec",
              "o_safety")
@@ -270,10 +370,10 @@ def fused_fmp_vote(
 ):
     """:func:`reference_fmp_vote` as one CUDA kernel on the card (the
     plain version on the CPU). Replaces the Pallas ``fused_fmp_vote``
-    (frankenpaxos_tpu/ops/fastmultipaxos.py:266). Bound by bytes: 26 B
-    per cell and 54 B per slot with every input read, 14.1 MB at
-    (3, 3334, 32). Bit-exact: integer work only, ``jnp.argmax``'s first
-    maximum kept by strict-``>`` scans."""
+    (frankenpaxos_tpu/ops/fastmultipaxos.py:266), on the route of
+    :func:`fmp_vote_route`. Bound by bytes: 13.0 MB needed at (3, 3334,
+    32). Bit-exact: integer work only, ``jnp.argmax``'s first maximum kept
+    by strict-``>`` scans."""
     args = (
         vote_value, vote_seen, status, open_tick, fast_committed, rv_value,
         rv_p2a_arrival, rv_p2b_arrival, rv_voted, chosen_value,
@@ -289,10 +389,11 @@ def fused_fmp_vote(
 
 def prepared_launch(*args, **statics) -> tuple:
     """For timing the kernel apart from its wrapper: checks the tensors
-    ``args`` (the wrapper's arguments), allocates the outputs and returns
-    ``(launch, outputs)``; each ``launch()`` runs the kernel once into
-    those outputs (and counts as a launch). On CPU tensors it runs the
-    wrapper's checks alone: only the launch needs the card."""
+    ``args`` (the wrapper's arguments), picks the route, allocates the
+    outputs and returns ``(launch, outputs)``; each ``launch()`` runs the
+    kernel once into those outputs (and counts as a launch on its route,
+    ``launch.route``). On CPU tensors it runs the wrapper's checks alone:
+    only the launch needs the card."""
     return _fmp_vote_kernel(*args, **statics)
 
 
@@ -301,7 +402,7 @@ def prepared_launch(*args, **statics) -> tuple:
 # ---------------------------------------------------------------------------
 
 EDGE_CASES = ("random", "no_visible", "all_distinct", "ties", "at_timeout",
-              "contradicted")
+              "contradicted", "zero_lat")
 
 
 def example_fmp_vote_args(rng, A, G, W, t=40, case="random", recovery_timeout=10):
@@ -317,7 +418,11 @@ def example_fmp_vote_args(rng, A, G, W, t=40, case="random", recovery_timeout=10
     * ``"at_timeout"``: open slots opened exactly ``recovery_timeout``
       ticks ago with ``A - f`` visible votes, or one tick too recently;
     * ``"contradicted"``: a fast-committed value in the ledger and a
-      fast quorum (or a recovery) for another value (the ``safety`` row).
+      fast quorum (or a recovery) for another value (the ``safety`` row);
+    * ``"zero_lat"``: the random inputs with a classic latency of 0 on
+      about half the slots, so a recovery that starts now votes now, and a
+      classic Phase2a that arrives now lands its Phase2b now (a slot chosen
+      through replies that land this tick).
     """
     shape, gw = (A, G, W), (G, W)
     f = (A - 1) // 2
@@ -364,8 +469,12 @@ def example_fmp_vote_args(rng, A, G, W, t=40, case="random", recovery_timeout=10
         rvv = np.full(gw, 6)
         rp2b = np.where(rng.random(shape) < 0.8, t - 1, INF)
         rvoted = np.ones(shape, bool)
-    elif case != "random":
+    elif case not in ("random", "zero_lat"):
         raise ValueError(f"unknown case {case!r}; known: {EDGE_CASES}")
+    rv_lat = rng.integers(1, 4, gw)
+    reply_lat = rng.integers(1, 4, gw)
+    if case == "zero_lat":
+        rv_lat = np.where(rng.random(gw) < 0.5, 0, rv_lat)
     return (
         np.ascontiguousarray(vv, dtype=i32),
         np.ascontiguousarray(vs, dtype=i32),
@@ -378,8 +487,8 @@ def example_fmp_vote_args(rng, A, G, W, t=40, case="random", recovery_timeout=10
         rvoted,
         cv.astype(i32),
         ra.astype(i32),
-        rng.integers(1, 4, gw).astype(i32),  # rv_lat
-        rng.integers(1, 4, gw).astype(i32),  # reply_lat
+        rv_lat.astype(i32),
+        reply_lat.astype(i32),
         t,
     )
 

@@ -18,11 +18,22 @@ JAX reference twin, with its outputs and dtypes. The wrapper runs it when
 its tensors lie on the CPU and launches the kernel when they lie on the
 card; it never falls back from the card to the plain version.
 
-Bound: a few integer ops per byte, so bound by the bytes moved. With
-every input read once, 19 B per ``[L, W, A]`` cell and 4 B per slot:
-6.5 MB (1.9 us at 3.35 TB/s) at ``(L, W, A) = (3334, 32, 3)``. The
-kernel reads the vote, delivery and latency cells only where the
-function needs them, about 14 B per cell on the main path.
+The kernel has two routes (:func:`mencius_vote_route`): the vector route,
+which every configuration of the repo takes (a thread per four cells: a
+16-byte load of each int32 plane and a 4-byte load of each bool plane,
+every dense load before any store, the slot counts joined in shared
+memory), and the general kernel (a thread a slot) for the shapes it does
+not take.
+
+Bound: a few integer ops per byte, so bound by the bytes moved. The bytes
+the function needs (:func:`mencius_vote_needed_bytes`: every Phase2a and
+Phase2b tick, a cell's vote bit where no Phase2a arrives now and its
+delivery bit where one does, the latency only where a delivered reply is
+scheduled, every output) are 5.16 MB at ``(L, W, A) = (3334, 32, 3)`` on
+the kernels line's inputs (1.5 us at 3.35 TB/s). The vector route also
+reads the vote bits of the cells whose Phase2a arrives now
+(:func:`mencius_vote_route_bytes`, 5.24 MB); every input and output once
+is 6.5 MB.
 """
 
 from __future__ import annotations
@@ -68,9 +79,53 @@ def reference_mencius_vote(
     return new_voted, new_p2b, nvotes
 
 
+def mencius_vote_needed_bytes(args) -> int:
+    """The bytes the plain version's outputs need on these inputs
+    (``args``: its positional arguments, ``t`` last): every cell's Phase2a
+    and Phase2b tick; the vote bit of each cell whose Phase2a does not
+    arrive now and the delivery bit of each cell whose Phase2a does; the
+    latency of each of those whose reply is delivered; every output once.
+    The outputs depend on no other input cell (the poison test of
+    ``tests/test_torch_ops_mencius.py``)."""
+    p2a, _, _, _, deliv, t = args
+    L, W, A = p2a.shape
+    cells, slots = L * W * A, L * W
+    arrived = p2a == int(t)
+    return (
+        cells * 9  # Phase2a tick, Phase2b tick; vote or delivery bit
+        + int((arrived & deliv).sum()) * 4  # latencies
+        + cells * 5 + slots * 4  # vote bit, Phase2b tick; count
+    )
+
+
+def mencius_vote_route_bytes(args) -> int:
+    """The bytes the kernel's vector route moves on these inputs (as
+    :func:`mencius_vote_needed_bytes`): it also reads the vote bit of
+    each cell whose Phase2a arrives now, with its vector."""
+    p2a, t = args[0], args[-1]
+    return mencius_vote_needed_bytes(args) + int((p2a == int(t)).sum())
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
+
+# The acceptor counts the vector route is built for (csrc/mencius.cu).
+VEC_A = (3, 5, 7, 9)
+
+
+def mencius_vote_route(*args) -> str:
+    """The vote kernel's route for the plane's arguments (those of
+    :func:`fused_mencius_vote`): "vector" when L * W % 4 == 0, A is in
+    VEC_A and every tensor is 16-byte aligned; else "general" (a thread a
+    slot, any shape). The vector route runs 32 * A threads a CTA; the
+    wrapper's block sizes only the general route's CTAs. The kernel
+    refuses the vector route where its conditions do not hold."""
+    L, W, A = args[0].shape
+    if L * W % 4 == 0 and A in VEC_A and registry.aligned16(args):
+        return "vector"
+    return "general"
+
 
 # Pointer slots of the kernel's argument block, in the order of the `Slot`
 # enum of csrc/mencius.cu.
@@ -84,9 +139,12 @@ _IN_DTYPES = {
 def _mencius_vote_kernel(
     p2a_arrival, voted, p2b_arrival, p2b_lat, p2b_delivered, t, block: int = 0
 ):
-    """Check the tensors, allocate the outputs and pack the launch;
-    returns ``(launch, outputs)``. The launch loads the CUDA library, so
-    the checks run without a card."""
+    """Check the tensors, pick the route (:func:`mencius_vote_route`),
+    allocate the outputs and pack the launch; returns ``(launch,
+    outputs)``. The launch loads the CUDA library, so the checks run
+    without a card; it carries ``route`` and ``packed``, the library
+    call's arguments (``harness/chain_race.py`` calls other builds of the
+    source with them)."""
     from frankenpaxos_tpu_torch.ops import _build
 
     L, W, A = p2a_arrival.shape
@@ -108,9 +166,10 @@ def _mencius_vote_kernel(
     t = int(t)
     if not -(2**31) <= t < 2**31:
         raise ValueError(f"{_PLANE}: tick {t} outside int32")
-    threads = block if block > 0 else 256
-    if not 32 <= threads <= 1024:
-        raise ValueError(f"{_PLANE}: block={threads} threads, want 32-1024")
+    if block and not 32 <= block <= 1024:
+        raise ValueError(f"{_PLANE}: block={block} threads, want 32-1024")
+    route = mencius_vote_route(*ins.values())
+    threads = block or 256
 
     dev = p2a_arrival.device
     outs = dict(
@@ -122,7 +181,7 @@ def _mencius_vote_kernel(
     ptrs = (ctypes.c_void_p * len(_PTR_SLOTS))(
         *[tensors[s].data_ptr() for s in _PTR_SLOTS]
     )
-    ints = (ctypes.c_int * 5)(L, W, A, t, threads)
+    ints = (ctypes.c_int * 6)(L, W, A, t, threads, registry.ROUTES.index(route))
 
     def launch() -> None:
         lib = _build.kernel_lib("fpx_mencius", len(_PTR_SLOTS))
@@ -133,8 +192,10 @@ def _mencius_vote_kernel(
                 f"{_PLANE}: kernel launch failed: "
                 f"{lib.fpx_error_string(err).decode()} (cuda error {err})"
             )
-        registry.count_launch(_PLANE)
+        registry.count_launch(_PLANE, route)
 
+    launch.route = route
+    launch.packed = (ptrs, ints)
     return launch, (outs["o_voted"], outs["o_p2b"], outs["o_nv"])
 
 
@@ -143,9 +204,10 @@ def fused_mencius_vote(
 ):
     """:func:`reference_mencius_vote` as one CUDA kernel on the card (the
     plain version on the CPU). Replaces the Pallas ``fused_mencius_vote``
-    (frankenpaxos_tpu/ops/mencius.py:81). Bound by bytes: 19 B per cell
-    with every input read, 6.5 MB at (3334, 32, 3). Bit-exact: integer
-    work only, the reply tick added in wrapping int32."""
+    (frankenpaxos_tpu/ops/mencius.py:81), on the route of
+    :func:`mencius_vote_route`. Bound by bytes: 5.16 MB needed at (3334,
+    32, 3). Bit-exact: integer work only, the reply tick added in wrapping
+    int32."""
     args = (p2a_arrival, voted, p2b_arrival, p2b_lat, p2b_delivered)
     if on_cpu(args):
         return reference_mencius_vote(*args, t)
@@ -156,10 +218,11 @@ def fused_mencius_vote(
 
 def prepared_launch(*args, **statics) -> tuple:
     """For timing the kernel apart from its wrapper: checks the tensors
-    ``args`` (the wrapper's arguments), allocates the outputs and returns
-    ``(launch, outputs)``; each ``launch()`` runs the kernel once into
-    those outputs (and counts as a launch). On CPU tensors it runs the
-    wrapper's checks alone: only the launch needs the card."""
+    ``args`` (the wrapper's arguments), picks the route, allocates the
+    outputs and returns ``(launch, outputs)``; each ``launch()`` runs the
+    kernel once into those outputs (and counts as a launch on its route,
+    ``launch.route``). On CPU tensors it runs the wrapper's checks alone:
+    only the launch needs the card."""
     return _mencius_vote_kernel(*args, **statics)
 
 

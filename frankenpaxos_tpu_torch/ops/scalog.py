@@ -190,6 +190,17 @@ def _scalog_cut_commit_kernel(
             )
         registry.count_launch(_PLANE)
 
+    def floor() -> None:
+        # The launch's floor: its memset and grid with a kernel that does
+        # nothing (csrc/scalog.cu fpx_scalog_floor_launch); not a launch
+        # of the kernel, so not counted.
+        lib = _build.kernel_lib("fpx_scalog", len(_PTR_SLOTS))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fpx_scalog_floor_launch(ptrs, ints, stream)
+        if err != 0:
+            raise RuntimeError(f"{_PLANE}: floor launch failed (cuda error {err})")
+
+    launch.floor = floor
     order = ("o_cut", "o_committed", "o_recs", "o_lag", "o_slotc",
              "o_commit", "o_snap")
     return launch, tuple(outs[k] for k in order)
@@ -220,7 +231,9 @@ def prepared_launch(*args, **statics) -> tuple:
     """For timing the kernel apart from its wrapper: checks the tensors
     ``args`` (the wrapper's arguments), allocates the outputs and returns
     ``(launch, outputs)``; each ``launch()`` runs the kernel once into
-    those outputs (and counts as a launch). On CPU tensors it runs the
+    those outputs (and counts as a launch). ``launch.floor()`` runs the
+    launch's floor on the same arguments: its memset and grid with a
+    kernel that does nothing (not counted). On CPU tensors it runs the
     wrapper's checks alone: only the launch needs the card."""
     return _scalog_cut_commit_kernel(*args, **statics)
 
