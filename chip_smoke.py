@@ -784,6 +784,19 @@ SC_PLANE = "scalog_cut_commit"
 # of the Scalog cut ring at 10,000 and 256 shards.
 HZ_SHAPES = ((6, 3334, 32), (6, 33334, 32))
 SC_SHAPES = ((8, 10000), (8, 256))
+# ((P, S), route) at which the Scalog kernel is held against its plain
+# version: the main shapes, the most shards the wrapper gives the cluster
+# route and one more, 10x, a 2-cut ring, rings of 16 and 9 cuts (the
+# cluster route's other row count) up to one trip of the cluster, and 17
+# and 32 cuts, past the cluster; P = 40 and past take the general route
+# too (check_repaired_shapes). next_cut values of the int32 edge.
+SC_CHECK_SHAPES = (
+    ((8, 256), "cluster"), ((8, 10000), "cluster"), ((8, 12000), "cluster"),
+    ((8, 12001), "general"), ((8, 100000), "general"), ((2, 5), "cluster"),
+    ((16, 8192), "cluster"), ((16, 8193), "general"), ((16, 777), "cluster"),
+    ((9, 33), "cluster"), ((17, 64), "general"), ((32, 1000), "general"),
+)
+SC_INT32_EDGE_NEXT = (2**31 - 1, -(2**31) + 3, 2**31 - 7)
 
 
 # (shape, route) of the horizontal vote's checks: the main shapes, f = 2
@@ -808,6 +821,18 @@ def check_hz_sc_kernels(registry, hzo, sco) -> dict:
     horizontal ones with and without a delivery plane). Returns the
     largest error per plane (0)."""
     err = {HZ_PLANE: 0, SC_PLANE: 0}
+    # The route is chosen without a card, from ops/scalog.py's mirror of
+    # what the launcher's cluster can take: hold the two together.
+    from frankenpaxos_tpu_torch.ops import _build
+
+    lib = _build.load()
+    for P in range(0, 42):
+        if lib.fpx_scalog_cluster_max_shards(P) != sco.cluster_max_shards(P):
+            raise AssertionError(
+                f"{SC_PLANE}: P={P} the launcher's cluster takes "
+                f"{lib.fpx_scalog_cluster_max_shards(P)} shards, ops/scalog.py "
+                f"says {sco.cluster_max_shards(P)}")
+    log(f"{SC_PLANE}: cluster_max_shards equals the launcher's for P = 0..41")
     for shape, route in HZ_ROUTE_CASES:
         st = hz_statics(shape[0])
         for case in hzo.EDGE_CASES:
@@ -829,7 +854,7 @@ def check_hz_sc_kernels(registry, hzo, sco) -> dict:
         log(f"exact: {HZ_PLANE}{shape} on {hzo.EDGE_CASES}, with and "
             f"without a delivery plane, {route} route and general route "
             f"(misaligned)")
-    for shape in ((8, 256), (8, 10000), (8, 100000), (2, 5), (32, 1000)):
+    for shape, sc_route in SC_CHECK_SHAPES:
         for case in sco.EDGE_CASES:
             for seed in range(3):
                 rng = np.random.default_rng(sum(shape) + seed)
@@ -837,12 +862,28 @@ def check_hz_sc_kernels(registry, hzo, sco) -> dict:
                     sco.example_scalog_cut_commit_args(rng, *shape, case=case),
                     "cuda",
                 )
-                got = sco.fused_scalog_cut_commit(*args)
-                torch.cuda.synchronize()
-                want = sco.reference_scalog_cut_commit(*args)
                 label = f"{SC_PLANE}{shape} {case} seed {seed}"
+                got = one_route(registry, SC_PLANE, sc_route, label,
+                                sco.fused_scalog_cut_commit, args, {})
+                want = sco.reference_scalog_cut_commit(*args)
                 err[SC_PLANE] = max(err[SC_PLANE], outputs_equal(label, want, got))
-        log(f"exact: {SC_PLANE}{shape} on {sco.EDGE_CASES}, 3 seeds each")
+        # committed_cuts + P - 1 past INT_MAX: the issue order wraps in
+        # int32 and two cuts share a ring slot (the plain version on the
+        # CPU, whose scatter keeps the last, as the kernels do).
+        for nc in SC_INT32_EDGE_NEXT:
+            host = list(sco.example_scalog_cut_commit_args(
+                np.random.default_rng(sum(shape)), *shape, case="all_committed"))
+            host[5] = np.array(2**31 - 4, np.int32)
+            host[6] = np.array(nc, np.int32)
+            label = f"{SC_PLANE}{shape} int32 edge next_cut={nc}"
+            got = one_route(registry, SC_PLANE, sc_route, label,
+                            sco.fused_scalog_cut_commit,
+                            registry.to_torch(host, "cuda"), {})
+            want = tuple(x.cuda() for x in sco.reference_scalog_cut_commit(
+                *registry.to_torch(host, "cpu")))
+            err[SC_PLANE] = max(err[SC_PLANE], outputs_equal(label, want, got))
+        log(f"exact: {SC_PLANE}{shape} on {sco.EDGE_CASES}, 3 seeds each, and "
+            f"the int32 edge ({sc_route} route)")
     return err
 
 
@@ -928,6 +969,7 @@ def scalog_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
     registry.reset_launches()
     secs = sim.timed_run(ticks)
     launches = only_launches(registry, SC_PLANE, ticks, phase)
+    routes = only_route(registry, SC_PLANE, ticks, phase, "cluster")
     sim.assert_invariants(phase)
     d = dict(zip(names, (a - b for a, b in zip(sim.get(*names), before))))
     if d["global_len"] <= 0 or d["committed_cuts"] <= 0:
@@ -942,6 +984,7 @@ def scalog_run(ctx, cfg, warm: int, ticks: int, phase: str) -> dict:
         "mean_ordering_lag_ticks": d["lat_sum"] / d["lat_count"],
         "lag_p50_ticks": p50, "lag_p99_ticks": p99,
         "invariants": sim.invariants(), "launches": launches,
+        "route_launches": routes,
     }
     log(json.dumps(line))
     return {"line": line, "sim": sim}
@@ -1056,10 +1099,11 @@ def horizontal_and_scalog(ctx) -> dict:
         ctx, dataclasses.replace(sc, num_shards=10000), 100, 300, "scalog"
     )
     out[SC_PLANE] = run["line"]["launches"][SC_PLANE]
+    out["sc_routes"] = run["line"]["route_launches"]
     out["sc_tick_ms"] = run["line"]["seconds"] * 1e3 / 300
     prof = profile_ticks(
         run["sim"].run, run["sim"].sync, 20, card, "scalog_profile",
-        kernel="scalog_cut_commit_kernel",
+        kernel="scalog_",
     )
     log(json.dumps(prof))
     out["sc_profiled_ms"] = prof["kernel_device_ms_per_launch"]
@@ -1081,6 +1125,7 @@ def horizontal_and_scalog(ctx) -> dict:
     secs += sim.timed_run(40)
     after = sim.get("next_cut", "global_len")
     launches = only_launches(registry, SC_PLANE, 100, "scalog faults")
+    only_route(registry, SC_PLANE, 100, "scalog faults", "cluster")
     sim.assert_invariants("scalog faults")
     if at_heal[0] != at_cut[0] or not after[1] > at_heal[1]:
         raise AssertionError(f"scalog faults: {at_cut} {at_heal} {after}")
@@ -1154,7 +1199,7 @@ def hz_sc_kernel_rows(ctx, launches: dict, max_err: dict, hs: dict) -> list:
                 )
                 launch, outs = sco.prepared_launch(*args)
                 n_commit = int(sco.reference_scalog_cut_commit(*args)[1].sum())
-                needed = S * 8 + n_commit * S * 4 + P * 30 + 8
+                needed = sco.scalog_cut_commit_needed_bytes(*args)
                 ops = S * max(1, n_commit) * 4
                 kern, plain = sco.fused_scalog_cut_commit, sco.reference_scalog_cut_commit
             moved = nbytes(args) + nbytes(outs)
@@ -1162,24 +1207,64 @@ def hz_sc_kernel_rows(ctx, launches: dict, max_err: dict, hs: dict) -> list:
             if plane == HZ_PLANE:
                 timed.update(vector_route_keys("hz", args, st, launch, needed, moved))
             else:
-                # The launch's floor: its memset and grid with a kernel
-                # that does nothing (csrc/scalog.cu
-                # fpx_scalog_floor_launch), timed the same ways.
+                # The launch floors, timed the same ways: the general
+                # route's memset and grid with a kernel that does nothing
+                # (csrc/scalog.cu fpx_scalog_floor_launch), and the route's
+                # own launch shape with one, no memset
+                # (fpx_scalog_one_floor_launch). The function needs one
+                # launch: bound_ms_one_launch is the larger of the byte
+                # bound and the one-launch floor.
                 floor = device_times(launch.floor)
+                one = device_times(launch.floor_one)
+                from frankenpaxos_tpu_torch.harness import chain_race as race
+
+                general = race.launcher(
+                    "sc", None, race.general_edit("sc"), launch.packed)
                 timed.update(
+                    launch_route=launch.route,
                     floor_ms_cold=floor["device_ms_cold"],
                     floor_ms_clean=floor["device_ms_cold_clean"],
                     floor_ms_warm=floor["device_ms_warm"],
                     floor_ratio_cold=timed["device_ms_cold"] / floor["device_ms_cold"],
+                    floor_one_ms_cold=one["device_ms_cold"],
+                    floor_one_ms_clean=one["device_ms_cold_clean"],
+                    floor_one_ms_warm=one["device_ms_warm"],
+                    floor_one_ratio_cold=timed["device_ms_cold"] / one["device_ms_cold"],
+                    bound_ms_one_launch=max(timed["bound_ms"], one["device_ms_cold"]),
+                    general_device_ms_cold=device_times(general)["device_ms_cold"],
+                    device_events_20_calls=trace_one_call(launch),
                 )
             key = "" if i == 0 else suffix
             row.update({f"{k}{key}": v for k, v in timed.items()})
             row["shape" + key] = list(shape)
-        if plane == HZ_PLANE:
-            row["route_launches"] = hs["hz_routes"]
+        row["route_launches"] = hs["hz_routes" if plane == HZ_PLANE else "sc_routes"]
         row["library_ms"] = None
         rows.append(row)
     return rows
+
+
+def trace_one_call(launch, calls: int = 20) -> dict:
+    """The device events (kernels, memsets) of ``calls`` calls of
+    ``launch()`` in the profiler's trace, ``{name: count}`` (a warm-up
+    step first: the profiler may still miss some of what is launched just
+    after it starts). Raises unless the calls launched one kernel and
+    nothing else (no memset): one name, at most ``calls`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                launch()
+            torch.cuda.synchronize()
+            prof.step()
+    events = {e.key[:80]: e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")}
+    if len(events) != 1 or not 0 < sum(events.values()) <= calls:
+        raise AssertionError(f"{calls} calls' device events: {events}")
+    return events
 
 
 def vector_route_keys(plane: str, args, statics, launch, needed: int,
@@ -1864,91 +1949,77 @@ def dg_schedule_ops(dgo, adj, committed, active) -> tuple:
 # -- The six-pass grid vote (#6) and the port's microbench -------------------
 
 UF_PLANE = "compartmentalized_unfused_grid_vote"
-# (R, C, NR, G, W) at which the six-pass kernel is held against its plain
-# passes and the fused kernel: the main shape, two ragged shapes, and the
-# general replica pass (W > 1024).
-UF_SHAPES = (CZ_MAIN, (2, 3, 2, 7, 16), (3, 2, 3, 64, 64), (2, 2, 3, 512, 2048))
+# (shape, misaligned, routes label) at which the six-pass kernel is held
+# against its plain passes and the fused kernel: the main shape, two
+# ragged shapes and W > 1024 (the replica pass general) on the routes
+# they take, and the shapes that take the others: misaligned copies and
+# G * W % 8 != 0 (every pass scalar), W % 8 != 0 with G * W % 8 == 0
+# (flat passes vector, replica scalar), the replica pass without a
+# whole-warp shuffle (W / 8 = 3), five and six replicas (two trips of
+# rows), nine grid cells.
+UF_ROUTE_CASES = (
+    (CZ_MAIN, False, "vector"),
+    ((2, 3, 2, 7, 16), False, "vector"),
+    ((3, 2, 3, 64, 64), False, "vector"),
+    ((2, 2, 3, 512, 2048), False, "vector+general"),
+    (CZ_MAIN, True, "scalar"),
+    ((2, 2, 3, 512, 2048), True, "scalar+general"),
+    ((2, 3, 2, 7, 12), False, "scalar"),
+    ((2, 2, 3, 2000, 12), False, "vector+scalar"),
+    ((2, 2, 5, 9, 24), False, "vector"),
+    ((3, 3, 6, 17, 40), False, "vector"),
+    ((1, 4, 4, 70, 8), False, "vector"),
+    ((2, 2, 3, 33, 1024), False, "vector"),
+)
 # The six kernels of one call, by name in the profiler, mangled or not
 # (the replica pass is uf_replica_any for W > 1024).
 UF_KERNEL_RE = r"uf_(age|vote|counts|choose|replica|retry)"
 
 
-def grid_vote_needed(czo, args, st, shape) -> tuple:
-    """The bytes the grid vote's inputs need, from the plain passes'
-    values on these inputs: ``(fused, passes)``, the fused kernel's
-    (``ops/compartmentalized.py`` ``grid_vote_needed_bytes``) and each of
-    the six passes' (by pass name). Every byte counts once, except those
-    a kernel reads only where it is used, as the kernels in
-    csrc/compartmentalized.cu do: p2b_del at voting cells and p2b_lat
-    where the vote is delivered; retry_del at the cells of timed-out
-    slots and retry_lat where they re-send; rep_lat at newly chosen
-    slots. The six passes also skip the choose pass's reads of a row
-    after its first vote and of alive_of_pos where the slot is not
-    PROPOSED with every row voted, and the retry pass's read of
-    alive_of_pos where the slot is not PROPOSED and due."""
-    R, C, NR, G, W = shape
-    plain = czo.reference_unfused_passes(*args, **st)
-    slot = dict(zip(czo.GRID_VOTE_IN_SLOTS, args))
-    for name, (_, written) in czo.UNFUSED_PASS_IO.items():
-        slot.update(zip(written, plain[name]))
-    moved = {
-        name: nbytes([slot[k] for k in reads + written])
-        for name, (reads, written) in czo.UNFUSED_PASS_IO.items()
-    }
-    cells, slots, rep_cells = R * C * G * W, G * W, NR * G * W
-    voted = int(slot["o_votes"].sum())
-    delivered = voted - int(slot["o_dropped"].sum())
-    timed = slot["o_timed"]
-    timed_cells = int(timed.sum()) * R * C
-    resent = int((timed[None, None] & slot["retry_del"]).sum())
-    armed = int(slot["o_newly"].sum()) * NR
-    # The choose pass reads a row's cells up to its first vote.
-    hit = (slot["o_p2b"] <= 0).to(torch.int32)
-    p2b_read = int(((hit.cumsum(1) - hit) == 0).sum())
-    proposed = slot["status"] == czo.PROPOSED
-    quorum = hit.amax(1).bool().all(0)
-    o_proposed = slot["o_status"] == czo.PROPOSED
-    due = o_proposed & ((args[14] - slot["ls"]) >= st["retry_timeout"])
-    vote_skip = (cells - voted) + (cells - delivered) * 4
-    retry_skip = (cells - timed_cells) + (cells - resent) * 4
-    rep_skip = (rep_cells - armed) * 4
-    passes = dict(moved)
-    passes["vote"] -= vote_skip
-    passes["counts"] -= cells - voted
-    passes["choose"] -= (cells - p2b_read) * 2 + slots - int((proposed & quorum).sum())
-    passes["replica"] -= rep_skip
-    passes["retry"] -= retry_skip + slots - int(due.sum())
+def grid_vote_needed(czo, args, st) -> tuple:
+    """The bytes the grid vote's inputs need: ``(fused, passes)``, the
+    fused kernel's (``ops/compartmentalized.py`` ``grid_vote_needed_bytes``)
+    and each of the six passes' (``unfused_needed_bytes``, by pass
+    name)."""
     fused = czo.grid_vote_needed_bytes(args, czo.reference_grid_vote(*args, **st))
-    return fused, passes
+    return fused, czo.unfused_needed_bytes(*args, **st)
 
 
 def check_unfused(ctx) -> int:
     """Hold the six-pass kernel against its plain passes, pass by pass and
     composed, and its ten outputs against the fused kernel's, at
-    UF_SHAPES, with a tolerance of zero. Returns the largest difference
-    (0)."""
+    UF_ROUTE_CASES, with a tolerance of zero; each case must take the
+    routes it names, counted by the wrapper. Returns the largest
+    difference (0)."""
     registry, czo = ctx["registry"], ctx["czo"]
     st = dict(retry_timeout=16)
     worst = 0
-    for shape in UF_SHAPES:
+    for shape, skew, routes in UF_ROUTE_CASES:
         rng = np.random.default_rng(sum(shape))
         args = registry.to_torch(czo.example_grid_vote_args(rng, *shape), "cuda")
+        if skew:
+            args = registry.misaligned(args)
+        label = f"{UF_PLANE}{shape}{' misaligned' if skew else ''}"
         launch, _, passes = czo.prepared_unfused_launch(*args, **st)
+        registry.reset_launches()
         launch()
         torch.cuda.synchronize()
+        took = registry.ROUTE_LAUNCHES.get(UF_PLANE, {})
+        if took != {routes: 1}:
+            raise AssertionError(f"{label}: routes {took}, want {routes}")
         plain = czo.reference_unfused_passes(*args, **st)
         for name in czo.UNFUSED_PASSES:
             worst = max(worst, outputs_equal(
-                f"{UF_PLANE}{shape} {name} pass", plain[name], passes[name]
+                f"{label} {name} pass", plain[name], passes[name]
             ))
         got = czo.unfused_grid_vote(*args, **st)
         torch.cuda.synchronize()
         want = czo.reference_unfused_grid_vote(*args, **st)
-        worst = max(worst, outputs_equal(f"{UF_PLANE}{shape}", want, got))
+        worst = max(worst, outputs_equal(label, want, got))
         fused = czo.fused_grid_vote(*args, **st)
         torch.cuda.synchronize()
-        worst = max(worst, outputs_equal(f"{UF_PLANE}{shape} vs fused", fused, got))
-        log(f"exact: {UF_PLANE}{shape}: each pass, the composition, the fused kernel")
+        worst = max(worst, outputs_equal(f"{label} vs fused", fused, got))
+        log(f"exact: {label} ({routes}): each pass, the composition, the fused kernel")
     return worst
 
 
@@ -1956,9 +2027,11 @@ def time_unfused(ctx) -> dict:
     """#6 at the Compartmentalized main shape: CUDA-event median of 30
     calls, the profiler's device time of one call (which must be six
     kernel launches, one of each pass), the plain passes' time, and the
-    fused kernel's on the same inputs. Its bound is the bytes each pass
-    needs on these inputs (grid_vote_needed), summed over the six
-    passes; ``bytes`` is every byte each pass reads and writes."""
+    fused kernel's on the same inputs; each pass alone (``passes``: cold,
+    clean and warm, its bound and a cold copy of its bytes) and the six
+    scalar kernels' cold time. Its bound is the bytes each pass needs on
+    these inputs (grid_vote_needed), summed over the six passes;
+    ``bytes`` is every byte each pass reads and writes."""
     import re
 
     from torch.autograd import DeviceType
@@ -1980,7 +2053,7 @@ def time_unfused(ctx) -> dict:
         for name, (reads, written) in czo.UNFUSED_PASS_IO.items()
     }
     moved = sum(pass_bytes.values())
-    fused_needed, pass_needed = grid_vote_needed(czo, args, st, CZ_MAIN)
+    fused_needed, pass_needed = grid_vote_needed(czo, args, st)
     needed = sum(pass_needed.values())
     # int32 operations per grid cell, replica cell and slot over the six
     # passes, counted from the kernel source.
@@ -2013,6 +2086,22 @@ def time_unfused(ctx) -> dict:
     fused_ms = time_ms(fused_launch)
     ms = time_ms(launch)
     fused_ms_again = time_ms(fused_launch)
+    # Each pass alone, cold, clean and warm, on the inputs the earlier
+    # passes left in the outputs (a pass writes nothing it reads), beside
+    # the least time for the bytes it needs and a cold copy of them; and
+    # the six kernels as first written (every pass scalar) on the same
+    # pointers.
+    from frankenpaxos_tpu_torch.harness import chain_race as race
+
+    launch()
+    per_pass = {}
+    for name in czo.UNFUSED_PASSES:
+        per_pass[name] = {
+            **device_times(launch.passes[name]),
+            "bound_ms": pass_needed[name] / HBM_BYTES_PER_S * 1e3,
+            **yardstick_keys(pass_needed[name]),
+        }
+    scalar = race.launcher("czu", None, race.czu_scalar_edit(W), launch.packed)
     return {
         "name": UF_PLANE,
         "route": "cuda",
@@ -2037,6 +2126,10 @@ def time_unfused(ctx) -> dict:
         "fused_bound_bytes": fused_needed,
         "fused_ms": [fused_ms, fused_ms_again],
         "fused_device_ms_cold": device_times(fused_launch)["device_ms_cold"],
+        "routes": launch.routes,
+        "passes": per_pass,
+        "scalar_device_ms_cold": device_times(scalar)["device_ms_cold"],
+        **yardstick_keys(needed),
         "library_ms": None,
     }
 
@@ -2641,6 +2734,10 @@ def main() -> int:
         "phase": "grid_vote_race", "card": card,
         "unfused_ms": uf_row["ms"], "fused_ms": uf_row["fused_ms"],
         "unfused_device_ms": uf_row["device_ms"],
+        "unfused_device_ms_cold": uf_row["device_ms_cold"],
+        "fused_device_ms_cold": uf_row["fused_device_ms_cold"],
+        "pass_device_ms_cold": {
+            p: v["device_ms_cold"] for p, v in uf_row["passes"].items()},
         "grid_vote_json_speedup": mbench["grid_vote"]["speedup"],
         "fused_tick_json_speedup": mbench["fused_tick"]["speedup"],
     }))
@@ -2719,7 +2816,7 @@ def main() -> int:
     st = dict(retry_timeout=16)
     launch, outs = czo.prepared_launch(*args, **st)
     moved = nbytes(args) + nbytes(outs)
-    needed, _ = grid_vote_needed(czo, args, st, CZ_MAIN)
+    needed, _ = grid_vote_needed(czo, args, st)
     cells, rep_cells = R * C * G_cz * W_cz, NR * G_cz * W_cz
     # int32 operations per grid cell, replica cell and slot, counted from
     # the kernel source.

@@ -610,14 +610,32 @@ int fpx_cz_launch(void* const* ptrs, const int* ints, void* stream) {
 // the kernel exists to be raced against the fused one, whose gain is the
 // round trips of the [R,C,G,W] planes that these passes make.
 //
-// Design. One thread per (g, w) ring slot, looping over the R x C cells or
-// the NR replicas as the Pallas pass bodies do. Passes 1-4 and 6 are
-// elementwise over the slots: a flat grid of 256-thread CTAs over G * W,
-// any W. The replica pass needs each replica's first gap, a minimum over a
-// group's W slots: it runs as the fused kernel's watermark does, gpb whole
-// groups per CTA with a warp or shared-atomic minimum (W <= 1024), or one
-// CTA per group with a block-stride loop over W (W > 1024). Masks and
-// latencies are read only where used, as in the fused kernel.
+// Design. Two routes a pass, each pass still its own launch in the order
+// above; the wrapper picks them (ops/compartmentalized.py unfused_routes)
+// and the launcher refuses a route whose conditions fail.
+//   * vector: a thread owns 8 consecutive slots and reads 16 bytes of each
+//     int16 plane row, 8 of each byte plane and 32 of each int32 plane,
+//     through local __restrict__ pointers, every unconditional load before
+//     its first store (up to kUfRows rows of a plane in one trip; more rows
+//     go in further trips of kUfRows). Masks and latencies are read only
+//     where a lane uses them, sector by sector as grid_vote_vec reads them:
+//     p2b_del a row's 8 bytes only where one of its lanes votes (a race
+//     had it beat a byte at each voting lane), p2b_lat, rep_lat and
+//     retry_lat a 16-byte half of the row only where one of its lanes
+//     needs it, retry_del a row only where a slot times out. The four elementwise
+//     passes and retry run a flat grid over G * W / 8 threads (G * W % 8 ==
+//     0, every plane 16-byte aligned); the replica pass W / 8 threads a
+//     group, gpb whole groups a CTA, with a shuffle-min over the group
+//     where W / 8 is a power of two that divides 32, else a shared atomic
+//     per thread and a barrier (W % 8 == 0, W <= 1024, aligned).
+//   * scalar (the kernels as first written): one thread per (g, w) ring
+//     slot, looping over the R x C cells or the NR replicas as the Pallas
+//     pass bodies do. Passes 1-4 and 6 are a flat grid of 256-thread CTAs
+//     over G * W, any W. The replica pass runs as the fused kernel's
+//     watermark does, gpb whole groups per CTA with a warp or
+//     shared-atomic minimum (W <= 1024), or (general) one CTA per group
+//     with a block-stride loop over W (W > 1024). Masks and latencies are
+//     read only where used, as in the fused kernel.
 //
 // Bound. Bytes: every pass reads and writes its planes once. At the main
 // shape (R, C, NR, G, W) = (2, 2, 3, 25000, 32), with every byte counted:
@@ -816,6 +834,397 @@ __global__ void uf_retry(const UfArgs a) {
   out<uint8_t>(a, U_O_TIMED)[gw] = timed;
 }
 
+// ---------------------------------------------------------------------------
+// The six passes' vector routes.
+// ---------------------------------------------------------------------------
+
+// Rows of a plane (grid cells or replicas) a thread loads in one trip.
+constexpr int kUfRows = 4;
+constexpr int kUfVecThreads = 256;
+
+// The first of the thread's 8 slots on the flat grid.
+__device__ __forceinline__ size_t uf_vec_slot() {
+  return (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 8;
+}
+__device__ __forceinline__ size_t uf_row(int j, size_t GW, size_t gw) {
+  return static_cast<size_t>(j) * GW + gw;
+}
+// A byte row's 8 lanes that are kProposed (or kChosen) as mask words.
+__device__ __forceinline__ void status_masks(unsigned* m, const V8& st,
+                                             unsigned code4) {
+  V8 p;
+  p.u.x = __vcmpeq4(st.u.x, code4);
+  p.u.y = __vcmpeq4(st.u.y, code4);
+  byte_masks(m, p);
+}
+// p2b_del at the lanes of a row that vote (called where one does), as
+// mask words: the row's 8 bytes in one load (it beat a byte at each voting
+// lane, as grid_vote_vec reads it, by 5% on an NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md).
+__device__ __forceinline__ void voting_del(unsigned* del, const uint8_t* row,
+                                          const unsigned* vote) {
+  const V8 d = ld8(row);
+  byte_masks(del, d);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) del[k] &= vote[k];
+}
+
+// Pass 1, age.
+__global__ void __launch_bounds__(kUfVecThreads) uf_age_vec(const UfArgs a) {
+  const size_t GW = uf_slots(a), gw = uf_vec_slot();
+  if (gw >= GW) return;
+  const int16_t* __restrict__ p2a = in<int16_t>(a, U_P2A);
+  const int16_t* __restrict__ p2b = in<int16_t>(a, U_P2B);
+  const int16_t* __restrict__ rep = in<int16_t>(a, U_REP);
+  int16_t* __restrict__ a_p2a = out<int16_t>(a, U_A_P2A);
+  int16_t* __restrict__ a_p2b = out<int16_t>(a, U_A_P2B);
+  int16_t* __restrict__ a_rep = out<int16_t>(a, U_A_REP);
+  const int RC = a.R * a.C;
+  const int rows = RC > a.NR ? RC : a.NR;
+  for (int j0 = 0; j0 < rows; j0 += kUfRows) {
+    V16 pa[kUfRows], pb[kUfRows], rp[kUfRows];
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      const size_t i = uf_row(j0 + j, GW, gw);
+      if (j0 + j < RC) {
+        pa[j] = ld16(p2a + i);
+        pb[j] = ld16(p2b + i);
+      }
+      if (j0 + j < a.NR) rp[j] = ld16(rep + i);
+    }
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      const size_t i = uf_row(j0 + j, GW, gw);
+      if (j0 + j < RC) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          pa[j].w[k] = age2(pa[j].w[k]);
+          pb[j].w[k] = age2(pb[j].w[k]);
+        }
+        st16(a_p2a + i, pa[j]);
+        st16(a_p2b + i, pb[j]);
+      }
+      if (j0 + j < a.NR) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) rp[j].w[k] = age2(rp[j].w[k]);
+        st16(a_rep + i, rp[j]);
+      }
+    }
+  }
+}
+
+// Pass 2, vote: the aged clocks in one trip, p2b_del at the voting lanes
+// in a second, p2b_lat where the vote is delivered in a third.
+__global__ void __launch_bounds__(kUfVecThreads) uf_vote_vec(const UfArgs a) {
+  const size_t GW = uf_slots(a), gw = uf_vec_slot();
+  if (gw >= GW) return;
+  const int16_t* __restrict__ a_p2a = in<int16_t>(a, U_A_P2A);
+  const int16_t* __restrict__ a_p2b = in<int16_t>(a, U_A_P2B);
+  const uint8_t* __restrict__ p2b_del = in<uint8_t>(a, U_P2B_DEL);
+  const int* __restrict__ p2b_lat = in<int>(a, U_P2B_LAT);
+  int16_t* __restrict__ o_p2b = out<int16_t>(a, U_O_P2B);
+  const int RC = a.R * a.C;
+  for (int j0 = 0; j0 < RC; j0 += kUfRows) {
+    V16 pa[kUfRows], pb[kUfRows];
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j < RC) {
+        const size_t i = uf_row(j0 + j, GW, gw);
+        pa[j] = ld16(a_p2a + i);
+        pb[j] = ld16(a_p2b + i);
+      }
+    }
+    unsigned del[kUfRows][4];
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) del[j][k] = 0;
+      if (j0 + j >= RC) continue;
+      unsigned vote[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) vote[k] = __vcmpeq2(pa[j].w[k], 0u);
+      if (any_lane(vote, 0, 4)) voting_del(del[j], p2b_del + uf_row(j0 + j, GW, gw), vote);
+    }
+    V16 lat[kUfRows][2];
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j < RC) load_masked(lat[j], p2b_lat + uf_row(j0 + j, GW, gw), del[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j >= RC) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned b = pb[j].w[k];
+        pb[j].w[k] = sel2(del[j][k], __vmins2(b, low_halves(lat[j], k)), b);
+      }
+      st16(o_p2b + uf_row(j0 + j, GW, gw), pb[j]);
+    }
+  }
+}
+
+// Pass 3, counts: the aged Phase2a in one trip, p2b_del at the voting
+// lanes in a second.
+__global__ void __launch_bounds__(kUfVecThreads) uf_counts_vec(const UfArgs a) {
+  const size_t GW = uf_slots(a), gw = uf_vec_slot();
+  if (gw >= GW) return;
+  const int16_t* __restrict__ a_p2a = in<int16_t>(a, U_A_P2A);
+  const uint8_t* __restrict__ p2b_del = in<uint8_t>(a, U_P2B_DEL);
+  int* __restrict__ o_votes = out<int>(a, U_O_VOTES);
+  int* __restrict__ o_dropped = out<int>(a, U_O_DROPPED);
+  const int RC = a.R * a.C;
+  unsigned votes[4] = {0, 0, 0, 0}, dropped[4] = {0, 0, 0, 0};
+  for (int j0 = 0; j0 < RC; j0 += kUfRows) {
+    V16 pa[kUfRows];
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j < RC) pa[j] = ld16(a_p2a + uf_row(j0 + j, GW, gw));
+    }
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j >= RC) continue;
+      unsigned vote[4], del[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) vote[k] = __vcmpeq2(pa[j].w[k], 0u);
+      if (any_lane(vote, 0, 4)) voting_del(del, p2b_del + uf_row(j0 + j, GW, gw), vote);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        votes[k] += vote[k] & 0x00010001u;
+        dropped[k] += (vote[k] & ~del[k]) & 0x00010001u;
+      }
+    }
+  }
+  V16 vo[2], dr[2];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    const int sh = 16 * (l & 1);
+    lane32(vo, l) = static_cast<int>(votes[l >> 1] >> sh & 0xffffu);
+    lane32(dr, l) = static_cast<int>(dropped[l >> 1] >> sh & 0xffffu);
+  }
+  st16(o_votes + gw, vo[0]);
+  st16(o_votes + gw + 4, vo[1]);
+  st16(o_dropped + gw, dr[0]);
+  st16(o_dropped + gw + 4, dr[1]);
+}
+
+// Pass 4, choose: every row voted, collected by a live proxy.
+__global__ void __launch_bounds__(kUfVecThreads) uf_choose_vec(const UfArgs a) {
+  const size_t GW = uf_slots(a), gw = uf_vec_slot();
+  if (gw >= GW) return;
+  const int16_t* __restrict__ o_p2b = in<int16_t>(a, U_O_P2B);
+  int8_t* __restrict__ o_status = out<int8_t>(a, U_O_STATUS);
+  uint8_t* __restrict__ o_newly = out<uint8_t>(a, U_O_NEWLY);
+  V8 st = ld8(in<int8_t>(a, U_STATUS) + gw);
+  const V8 alive = ld8(in<uint8_t>(a, U_ALIVE) + gw);
+  const int RC = a.R * a.C;
+  unsigned quorum[4] = {0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu};
+  unsigned row_any[4] = {0, 0, 0, 0};
+  for (int j0 = 0; j0 < RC; j0 += kUfRows) {
+    V16 pb[kUfRows];
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j < RC) pb[j] = ld16(o_p2b + uf_row(j0 + j, GW, gw));
+    }
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j >= RC) continue;
+      const int c = (j0 + j) % a.C;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (c == 0) row_any[k] = 0;
+        row_any[k] |= __vcmples2(pb[j].w[k], 0u);
+        if (c == a.C - 1) quorum[k] &= row_any[k];
+      }
+    }
+  }
+  unsigned prop[4], live_proxy[4], newly[4];
+  status_masks(prop, st, 0x01010101u);  // kProposed
+  byte_masks(live_proxy, alive);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) newly[k] = prop[k] & quorum[k] & live_proxy[k];
+  const V8 nb = mask_bytes(newly);
+  st.u.x = (st.u.x & ~(nb.u.x * 0xffu)) | (nb.u.x * kChosen);
+  st.u.y = (st.u.y & ~(nb.u.y * 0xffu)) | (nb.u.y * kChosen);
+  st8(o_status + gw, st);
+  st8(o_newly + gw, nb);
+}
+
+// Pass 5, replica: blockDim = (W / 8, gpb); the group's per-replica first
+// gap by a shuffle-min (kShfl) or a shared atomic and a barrier.
+template <bool kShfl>
+__global__ void __launch_bounds__(256) uf_replica_vec(const UfArgs a) {
+  extern __shared__ int s_gap[];  // [NR][gpb], without kShfl only
+  const int per_group = a.W / 8;
+  const int x = threadIdx.x;
+  const int gi = threadIdx.y;
+  const int g = blockIdx.x * a.gpb + gi;
+  const bool valid = g < a.G;
+  const size_t GW = uf_slots(a);
+  const int w0 = x * 8;
+  const size_t gw = static_cast<size_t>(g) * a.W + w0;
+  const int16_t* __restrict__ a_rep = in<int16_t>(a, U_A_REP);
+  const int* __restrict__ rep_lat = in<int>(a, U_REP_LAT);
+  const int* __restrict__ rep_exec = in<int>(a, U_REP_EXEC);
+  int16_t* __restrict__ o_rep = out<int16_t>(a, U_O_REP);
+  int* __restrict__ o_rep_exec = out<int>(a, U_O_REP_EXEC);
+  if (!kShfl) {
+    if (x == 0) {
+      for (int n = 0; n < a.NR; ++n) s_gap[n * a.gpb + gi] = INT_MAX;
+    }
+    __syncthreads();
+  }
+  int head = 0, next = 0;
+  V8 st, nw;
+  st.u = nw.u = make_uint2(0, 0);
+  if (valid) {
+    head = in<int>(a, U_HEAD)[g];
+    next = in<int>(a, U_NEXT)[g];
+    st = ld8(in<int8_t>(a, U_O_STATUS) + gw);
+    nw = ld8(in<uint8_t>(a, U_O_NEWLY) + gw);
+  }
+  for (int n0 = 0; n0 < a.NR; n0 += kUfRows) {
+    V16 rp[kUfRows], rl[kUfRows][2];
+    int old[kUfRows];
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      old[j] = 0;
+      if (!valid || n0 + j >= a.NR) continue;
+      rp[j] = ld16(a_rep + uf_row(n0 + j, GW, gw));
+      if (kShfl && x == 0) old[j] = rep_exec[static_cast<size_t>(n0 + j) * a.G + g];
+    }
+    unsigned newly[4], chosen[4], ord[4], live[4];
+    byte_masks(newly, nw);
+    status_masks(chosen, st, 0x02020202u);  // kChosen
+    {
+      // Per lane pair: the ring ordinal, and whether the position is live.
+      const int span = wsub(next, head);
+      const int ord0 = floor_mod(wsub(w0, head), a.W);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int o0 = ord0 + 2 * k, o1 = o0 + 1;
+        o0 = o0 < a.W ? o0 : o0 - a.W;
+        o1 = o1 < a.W ? o1 : o1 - a.W;
+        ord[k] = static_cast<unsigned>(o0) | (static_cast<unsigned>(o1) << 16);
+        live[k] = (w0 + 2 * k < span ? 0x0000ffffu : 0u) |
+                  (w0 + 2 * k + 1 < span ? 0xffff0000u : 0u);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (valid && n0 + j < a.NR) load_masked(rl[j], rep_lat + uf_row(n0 + j, GW, gw), newly);
+    }
+    const unsigned wide = static_cast<unsigned>(a.W) * 0x00010001u;
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (n0 + j >= a.NR) continue;
+      int gap = a.W;
+      if (valid) {
+        unsigned m = 0xffffffffu;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const unsigned r = sel2(newly[k], low_halves(rl[j], k), rp[j].w[k]);
+          rp[j].w[k] = r;
+          const unsigned ready = chosen[k] & __vcmples2(r, 0u) & live[k];
+          m = __vminu2(m, sel2(ready, wide, ord[k]));
+        }
+        const int lo = static_cast<int>(m & 0xffffu), hi = static_cast<int>(m >> 16);
+        gap = lo < hi ? lo : hi;
+        st16(o_rep + uf_row(n0 + j, GW, gw), rp[j]);
+      }
+      if (kShfl) {
+        for (int off = per_group >> 1; off > 0; off >>= 1) {
+          const int o = __shfl_xor_sync(0xffffffffu, gap, off);
+          gap = o < gap ? o : gap;
+        }
+        if (valid && x == 0) {
+          const int mark = wadd(head, gap);
+          o_rep_exec[static_cast<size_t>(n0 + j) * a.G + g] = old[j] > mark ? old[j] : mark;
+        }
+      } else {
+        atomicMin(&s_gap[(n0 + j) * a.gpb + gi], gap);
+      }
+    }
+  }
+  if (!kShfl) {
+    __syncthreads();
+    if (valid && x == 0) uf_store_watermarks(a, g, s_gap + gi, a.gpb);
+  }
+}
+
+// Pass 6, retry: the slot fields and aged Phase2a rows in one trip,
+// retry_del where a slot times out in a second, retry_lat where the
+// re-send lands in a third.
+__global__ void __launch_bounds__(kUfVecThreads) uf_retry_vec(const UfArgs a) {
+  const size_t GW = uf_slots(a), gw = uf_vec_slot();
+  if (gw >= GW) return;
+  const int16_t* __restrict__ a_p2a = in<int16_t>(a, U_A_P2A);
+  const uint8_t* __restrict__ retry_del = in<uint8_t>(a, U_RETRY_DEL);
+  const int* __restrict__ retry_lat = in<int>(a, U_RETRY_LAT);
+  int16_t* __restrict__ o_p2a = out<int16_t>(a, U_O_P2A);
+  int* __restrict__ o_ls = out<int>(a, U_O_LS);
+  const V8 st = ld8(in<int8_t>(a, U_O_STATUS) + gw);
+  const V8 alive = ld8(in<uint8_t>(a, U_ALIVE) + gw);
+  V16 ls[2];
+  ls[0] = ld16(in<int>(a, U_LS) + gw);
+  ls[1] = ld16(in<int>(a, U_LS) + gw + 4);
+  const int RC = a.R * a.C;
+  unsigned timed[4] = {0, 0, 0, 0};
+  for (int j0 = 0; j0 < RC; j0 += kUfRows) {
+    V16 pa[kUfRows];
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j < RC) pa[j] = ld16(a_p2a + uf_row(j0 + j, GW, gw));
+    }
+    {
+      unsigned prop[4], live_proxy[4];
+      status_masks(prop, st, 0x01010101u);  // kProposed
+      byte_masks(live_proxy, alive);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool d0 = wsub(a.t, lane32(ls, 2 * k)) >= a.retry_timeout;
+        const bool d1 = wsub(a.t, lane32(ls, 2 * k + 1)) >= a.retry_timeout;
+        timed[k] = ((d0 ? 0x0000ffffu : 0u) | (d1 ? 0xffff0000u : 0u)) &
+                   prop[k] & live_proxy[k];
+      }
+    }
+    if (any_lane(timed, 0, 4)) {
+      unsigned resend[kUfRows][4];
+#pragma unroll
+      for (int j = 0; j < kUfRows; ++j) {
+        V8 rd;
+        rd.u = make_uint2(0, 0);
+        if (j0 + j < RC) rd = ld8(retry_del + uf_row(j0 + j, GW, gw));
+        byte_masks(resend[j], rd);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) resend[j][k] &= timed[k];
+      }
+      V16 tl[kUfRows][2];
+#pragma unroll
+      for (int j = 0; j < kUfRows; ++j) {
+        if (j0 + j < RC) load_masked(tl[j], retry_lat + uf_row(j0 + j, GW, gw), resend[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kUfRows; ++j) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          pa[j].w[k] = sel2(resend[j][k], low_halves(tl[j], k), pa[j].w[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUfRows; ++j) {
+      if (j0 + j < RC) st16(o_p2a + uf_row(j0 + j, GW, gw), pa[j]);
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    if (timed[l >> 1] >> (16 * (l & 1)) & 1u) lane32(ls, l) = a.t;
+  }
+  st16(o_ls + gw, ls[0]);
+  st16(o_ls + gw + 4, ls[1]);
+  st8(out<uint8_t>(a, U_O_TIMED) + gw, mask_bytes(timed));
+}
+
 }  // namespace
 
 extern "C" {
@@ -825,9 +1234,17 @@ int fpx_czu_num_slots() { return UF_NUM_SLOTS; }
 
 // Launch pass `which` (0 age, 1 vote, 2 counts, 3 choose, 4 replica,
 // 5 retry) of the six-pass grid vote. ptrs holds UF_NUM_SLOTS device
-// pointers; ints = {R, C, NR, G, W, t, retry_timeout, gpb}, gpb the groups
-// per CTA of the replica pass. Returns the CUDA error of the launch (0 =
-// launched). Does not synchronise.
+// pointers; ints = {R, C, NR, G, W, t, retry_timeout, gpb, flat route,
+// replica route}: gpb the groups per CTA of the replica pass, the routes
+// the wrapper chose (ops/compartmentalized.py unfused_routes; codes of
+// ops/registry.py ROUTES). Passes 1-4 and 6 take the flat route: 0 scalar
+// (a thread a slot, any shape) or 2 vector (8 slots a thread; G * W % 8 ==
+// 0 and every pointer 16-byte aligned). The replica pass takes its own: 0
+// scalar (gpb groups of W threads a CTA, W * gpb <= 1024), 1 general (a CTA
+// per group, any W) or 2 vector (gpb groups of W / 8 threads, at most 256;
+// W % 8 == 0, W <= 1024, aligned). A route whose conditions fail is
+// refused. Returns the CUDA error of the launch (0 = launched). Does not
+// synchronise.
 int fpx_czu_launch(int which, void* const* ptrs, const int* ints,
                    void* stream) {
   UfArgs a;
@@ -840,6 +1257,8 @@ int fpx_czu_launch(int which, void* const* ptrs, const int* ints,
   a.t = ints[5];
   a.retry_timeout = ints[6];
   a.gpb = ints[7];
+  const int flat = ints[8];
+  const int replica = ints[9];
   if (which < 0 || which > 5) return cudaErrorInvalidValue;
   if (a.G <= 0) return 0;
   if (a.R <= 0 || a.C <= 0 || a.NR <= 0 || a.W <= 0 || a.gpb <= 0) {
@@ -847,29 +1266,73 @@ int fpx_czu_launch(int which, void* const* ptrs, const int* ints,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t slots = static_cast<size_t>(a.G) * a.W;
-  const size_t ctas = (slots + kUfThreads - 1) / kUfThreads;
-  if (ctas > static_cast<size_t>(INT_MAX)) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(ctas));
-  switch (which) {
-    case 0: uf_age<<<grid, kUfThreads, 0, st>>>(a); break;
-    case 1: uf_vote<<<grid, kUfThreads, 0, st>>>(a); break;
-    case 2: uf_counts<<<grid, kUfThreads, 0, st>>>(a); break;
-    case 3: uf_choose<<<grid, kUfThreads, 0, st>>>(a); break;
-    case 4: {
-      const size_t shmem = sizeof(int) * static_cast<size_t>(a.NR) * a.gpb;
-      if (static_cast<long long>(a.W) * a.gpb <= 1024 && shmem <= 48 * 1024) {
-        const dim3 block(a.W, a.gpb);
-        uf_replica<<<(a.G + a.gpb - 1) / a.gpb, block, shmem, st>>>(a);
-      } else {
+  const bool aligned = all_aligned16(a.p, UF_NUM_SLOTS);
+  const size_t shmem = sizeof(int) * static_cast<size_t>(a.NR) * a.gpb;
+  if (which == 4) {
+    const dim3 grid((a.G + a.gpb - 1) / a.gpb);
+    switch (replica) {
+      case 0: {
+        if (static_cast<long long>(a.W) * a.gpb > 1024 || shmem > 48 * 1024) {
+          return cudaErrorInvalidValue;
+        }
+        uf_replica<<<grid, dim3(a.W, a.gpb), shmem, st>>>(a);
+        break;
+      }
+      case 1: {
         const size_t shmem_any = sizeof(int) * static_cast<size_t>(a.NR);
         if (shmem_any > 48 * 1024) return cudaErrorInvalidValue;
         int threads = ((a.W + 31) / 32) * 32;
         if (threads > 256) threads = 256;
         uf_replica_any<<<a.G, threads, shmem_any, st>>>(a);
+        break;
       }
-      break;
+      case 2: {
+        const int per_group = a.W / 8;
+        const int threads = per_group * a.gpb;
+        if (a.W % 8 != 0 || a.W > 1024 || threads > 256 || !aligned) {
+          return cudaErrorInvalidValue;
+        }
+        const bool shfl = (per_group & (per_group - 1)) == 0 &&
+                          per_group <= 32 && threads % 32 == 0;
+        const dim3 block(per_group, a.gpb);
+        if (shfl) {
+          uf_replica_vec<true><<<grid, block, 0, st>>>(a);
+        } else {
+          if (shmem > 48 * 1024) return cudaErrorInvalidValue;
+          uf_replica_vec<false><<<grid, block, shmem, st>>>(a);
+        }
+        break;
+      }
+      default:
+        return cudaErrorInvalidValue;
     }
-    default: uf_retry<<<grid, kUfThreads, 0, st>>>(a); break;
+    return cudaGetLastError();
+  }
+  if (flat == 0) {
+    const size_t ctas = (slots + kUfThreads - 1) / kUfThreads;
+    if (ctas > static_cast<size_t>(INT_MAX)) return cudaErrorInvalidValue;
+    const dim3 grid(static_cast<unsigned>(ctas));
+    switch (which) {
+      case 0: uf_age<<<grid, kUfThreads, 0, st>>>(a); break;
+      case 1: uf_vote<<<grid, kUfThreads, 0, st>>>(a); break;
+      case 2: uf_counts<<<grid, kUfThreads, 0, st>>>(a); break;
+      case 3: uf_choose<<<grid, kUfThreads, 0, st>>>(a); break;
+      default: uf_retry<<<grid, kUfThreads, 0, st>>>(a); break;
+    }
+  } else if (flat == 2) {
+    if (slots % 8 != 0 || !aligned) return cudaErrorInvalidValue;
+    const size_t ctas = (slots / 8 + kUfVecThreads - 1) / kUfVecThreads;
+    if (ctas > static_cast<size_t>(INT_MAX)) return cudaErrorInvalidValue;
+    const dim3 grid(static_cast<unsigned>(ctas));
+    switch (which) {
+      case 0: uf_age_vec<<<grid, kUfVecThreads, 0, st>>>(a); break;
+      case 1: uf_vote_vec<<<grid, kUfVecThreads, 0, st>>>(a); break;
+      case 2: uf_counts_vec<<<grid, kUfVecThreads, 0, st>>>(a); break;
+      case 3: uf_choose_vec<<<grid, kUfVecThreads, 0, st>>>(a); break;
+      default: uf_retry_vec<<<grid, kUfVecThreads, 0, st>>>(a); break;
+    }
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }

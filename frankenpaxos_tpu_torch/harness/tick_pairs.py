@@ -1,20 +1,27 @@
-"""Ticks/s of the Mencius and Fast MultiPaxos points of ``chip_smoke.py``,
-and the host cost of one call of their vote-plane wrappers, for this
-checkout and another one, in alternating processes on one card:
+"""Ticks/s of the Mencius, Fast MultiPaxos and Scalog points of
+``chip_smoke.py``, and the host cost of one call of their plane wrappers,
+for this checkout and another one, in alternating processes on one card:
 
     python -m frankenpaxos_tpu_torch.harness.tick_pairs --parent DIR [--rounds 2]
+        [--backends mencius fastmultipaxos scalog]
 
-The points, as ``chip_smoke.py`` phases 15-20 drive them (seed 0): each
-backend at 10,002 acceptors (100 warm-up ticks, then 300 timed), at
-100,002 acceptors (50 ticks from a cold state) and under the static fault
-plan of drops, jitter, crashes and a healing cut (60 and 40 ticks from a
-cold state). The profiled ticks of ``chip_smoke.py`` are left out. The host
-cost a call of ``fused_mencius_vote`` and ``fused_fmp_vote`` at their
-main shapes (seed 7, as the kernels line draws them) on the card: the
-least, over 10 batches, of a batch of 200 calls back to back without a
-synchronize over 200 (the kernel, 5-12 us, is shorter than the call, so
-the host sets the pace); where the checkout's wrappers choose a route
-(``mencius_vote_route``, ``fmp_vote_route``), that choice's own host
+The points, as ``chip_smoke.py`` phases 15-20 and 28 drive them (seed 0):
+Mencius and Fast MultiPaxos at 10,002 acceptors (100 warm-up ticks, then
+300 timed), at 100,002 acceptors (50 ticks from a cold state) and under
+the static fault plan of drops, jitter, crashes and a healing cut (60 and
+40 ticks from a cold state); Scalog at 256 and 10,000 shards (100 warm-up
+ticks, then 300 timed). The profiled ticks of ``chip_smoke.py`` are left
+out, but at each Scalog point 20 more ticks run under ``torch.profiler``:
+the device time a tick of the cut-commit kernel (the events whose name
+holds ``scalog``) and of every memset, and their launches a tick, so the
+two checkouts' kernel, or memset and kernel, show side by side. The host
+cost a call of ``fused_mencius_vote``, ``fused_fmp_vote``
+and ``fused_scalog_cut_commit`` at their main shapes (seed 7, as the
+kernels line draws them) on the card: the least, over 10 batches, of a
+batch of 200 calls back to back without a synchronize over 200 (the
+kernel, 5-12 us, is shorter than the call, so the host sets the pace);
+where the checkout's wrappers choose a route (``mencius_vote_route``,
+``fmp_vote_route``, ``scalog_cut_commit_route``), that choice's own host
 cost a call the same way, so the part of a difference it explains shows.
 
 Each round runs the other checkout, this one, this one, the other one,
@@ -64,7 +71,38 @@ def _timed(mod, prng, cfg, warm: int, segments) -> tuple:
         secs += (time.perf_counter() - t0) if timed else 0.0
     if mod.__name__.endswith("mencius_batched"):
         return secs, int(state.committed_real)
+    if mod.__name__.endswith("scalog_batched"):
+        return secs, int(state.global_len)
     return secs, int(mod.stats(cfg, state, t)["cmds_done"])
+
+
+PROFILED_TICKS = 20
+
+
+def _profiled(mod, prng, cfg, warm: int) -> dict:
+    """Device ms and launches a tick of the cut-commit kernel and of the
+    memsets over :data:`PROFILED_TICKS` ticks under ``torch.profiler``,
+    after ``warm`` untimed ticks (keys as :func:`_timed`'s)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    key = prng.PRNGKey(0)
+    state, t = mod.run_ticks(cfg, mod.init_state(cfg, device=DEVICE), 0, warm,
+                             prng.fold_in(key, 0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mod.run_ticks(cfg, state, t, PROFILED_TICKS, prng.fold_in(key, 1))
+        torch.cuda.synchronize()
+    out = {}
+    for what, part in (("kernel", "scalog"), ("memset", "emset")):
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and part in e.key]
+        us = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+                 for e in events)
+        out[f"{what}_device_ms_per_tick"] = us / 1e3 / PROFILED_TICKS
+        out[f"{what}s_per_tick"] = sum(e.count for e in events) / PROFILED_TICKS
+    return out
 
 
 def _host_us(fn, args, statics) -> float:
@@ -84,8 +122,12 @@ def _host_us(fn, args, statics) -> float:
     return best / CALLS * 1e6
 
 
-def child() -> dict:
-    """This process's points, on the checkout its ``PYTHONPATH`` names."""
+BACKENDS = ("mencius", "fastmultipaxos", "scalog")
+
+
+def child(backends=BACKENDS) -> dict:
+    """This process's points of ``backends``, on the checkout its
+    ``PYTHONPATH`` names."""
     import numpy as np
 
     import frankenpaxos_tpu_torch
@@ -93,8 +135,10 @@ def child() -> dict:
     from frankenpaxos_tpu_torch.ops import fastmultipaxos as fmo
     from frankenpaxos_tpu_torch.ops import mencius as meo
     from frankenpaxos_tpu_torch.ops import registry
+    from frankenpaxos_tpu_torch.ops import scalog as sco
     from frankenpaxos_tpu_torch.tpu import fastmultipaxos_batched as fb
     from frankenpaxos_tpu_torch.tpu import mencius_batched as mb
+    from frankenpaxos_tpu_torch.tpu import scalog_batched as sb
     from frankenpaxos_tpu_torch.tpu.faults import FaultPlan
 
     out = {"root": os.path.dirname(os.path.dirname(frankenpaxos_tpu_torch.__file__))}
@@ -123,18 +167,32 @@ def child() -> dict:
          dataclasses.replace(fmp, num_groups=GROUPS[1]), 0, (50,)),
         ("fastmultipaxos_faults", fb, dataclasses.replace(fmp, faults=plan),
          0, (60, 40)),
+        ("scalog_256", sb, sb.BatchedScalogConfig(
+            num_shards=256, appends_per_tick=8), 100, (300,)),
+        ("scalog", sb, sb.BatchedScalogConfig(
+            num_shards=10000, appends_per_tick=8), 100, (300,)),
     )
     for name, mod, cfg, warm, segments in points:
+        if not name.startswith(backends):
+            continue
         secs, done = _timed(mod, prng, cfg, warm, segments)
         out[name] = {"ticks_per_s": sum(segments) / secs, "entries_total": done}
+        if name.startswith("scalog"):
+            out.update({f"{name}_{k}": v
+                        for k, v in _profiled(mod, prng, cfg, warm).items()})
     cases = (
         ("mencius_vote", meo, "fused_mencius_vote", "mencius_vote_route",
          meo.example_mencius_vote_args(np.random.default_rng(7), 3334, 32, 3), {}),
         ("fastmultipaxos_vote", fmo, "fused_fmp_vote", "fmp_vote_route",
          fmo.example_fmp_vote_args(np.random.default_rng(7), 3, 3334, 32),
          dict(fq=3, f=1, recovery_timeout=10)),
+        ("scalog_cut_commit", sco, "fused_scalog_cut_commit",
+         "scalog_cut_commit_route",
+         sco.example_scalog_cut_commit_args(np.random.default_rng(7), 8, 10000), {}),
     )
     for name, mod, kernel, route, args, st in cases:
+        if not name.startswith(backends):
+            continue
         args = registry.to_torch(args, DEVICE)
         out[f"{name}_host_us"] = _host_us(getattr(mod, kernel), args, st)
         if hasattr(mod, route):
@@ -146,6 +204,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--backends", nargs="+", choices=BACKENDS,
+                    default=list(BACKENDS))
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     if opts.child:
@@ -154,7 +214,7 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             print("tick_pairs: no CUDA device", file=sys.stderr)
             return 1
-        print(json.dumps(child()), flush=True)
+        print(json.dumps(child(tuple(opts.backends))), flush=True)
         return 0
     if not opts.parent:
         ap.error("--parent DIR is required")
@@ -164,7 +224,8 @@ def main(argv=None) -> int:
         for which in ("parent", "change", "change", "parent"):
             env = dict(os.environ, PYTHONPATH=roots[which])
             proc = subprocess.run(
-                [sys.executable, HERE, "--child"], cwd=roots[which], env=env,
+                [sys.executable, HERE, "--child", "--backends", *opts.backends],
+                cwd=roots[which], env=env,
                 capture_output=True, text=True, timeout=900,
             )
             if proc.returncode:

@@ -168,6 +168,10 @@ def load() -> ctypes.CDLL:
             ]
         lib.fpx_scalog_floor_launch.restype = ctypes.c_int
         lib.fpx_scalog_floor_launch.argtypes = lib.fpx_scalog_launch.argtypes
+        lib.fpx_scalog_one_floor_launch.restype = ctypes.c_int
+        lib.fpx_scalog_one_floor_launch.argtypes = lib.fpx_scalog_launch.argtypes
+        lib.fpx_scalog_cluster_max_shards.restype = ctypes.c_int
+        lib.fpx_scalog_cluster_max_shards.argtypes = [ctypes.c_int]
         lib.fpx_error_string.restype = ctypes.c_char_p
         lib.fpx_error_string.argtypes = [ctypes.c_int]
         _LIB = lib

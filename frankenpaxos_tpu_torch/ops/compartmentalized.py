@@ -37,7 +37,10 @@ the general kernel (a CTA a group) past W = 1024.
 ``frankenpaxos_tpu/ops/compartmentalized.py:497``) is the same work in
 six passes, each its own CUDA kernel that reads its inputs from device
 memory and writes its outputs there: clock aging, the Phase2b vote, the
-vote counts, the choose, the replica watermark and the retry. It exists
+vote counts, the choose, the replica watermark and the retry. Each pass
+has a vector route (8 slots a thread, 16-byte loads) beside the kernel
+it was first written as (a thread a slot), chosen by
+:func:`unfused_routes`. It exists
 to be raced against the fused kernel (``harness/microbench.py``
 ``bench_grid_vote``): the six passes price the round trips of the
 ``[R, C, G, W]`` planes that the fused kernel deletes. Nothing in the
@@ -281,6 +284,51 @@ def reference_unfused_passes(
     )
 
 
+def unfused_needed_bytes(*args, retry_timeout: int) -> dict:
+    """The bytes each of the six passes needs on these inputs (``args``:
+    the wrapper's tensors and ``t``), by pass name, from the plain passes'
+    values: every byte a pass reads and writes once (:data:`UNFUSED_PASS_IO`),
+    except those a kernel reads only where it is used, as the kernels in
+    csrc/compartmentalized.cu do: p2b_del at voting cells and p2b_lat
+    where the vote is delivered; retry_del at the cells of timed-out slots
+    and retry_lat where they re-send; rep_lat at newly chosen slots; the
+    choose pass's reads of a row after its first vote and of alive_of_pos
+    where the slot is not PROPOSED with every row voted; the retry pass's
+    read of alive_of_pos where the slot is not PROPOSED and due."""
+    R, C, G, W = args[0].shape
+    NR = args[2].shape[0]
+    plain = reference_unfused_passes(*args, retry_timeout=retry_timeout)
+    slot = dict(zip(GRID_VOTE_IN_SLOTS, args))
+    for name, (_, written) in UNFUSED_PASS_IO.items():
+        slot.update(zip(written, plain[name]))
+    passes = {
+        name: sum(slot[k].numel() * slot[k].element_size()
+                  for k in reads + written)
+        for name, (reads, written) in UNFUSED_PASS_IO.items()
+    }
+    cells, slots, rep_cells = R * C * G * W, G * W, NR * G * W
+    voted = int(slot["o_votes"].sum())
+    delivered = voted - int(slot["o_dropped"].sum())
+    timed = slot["o_timed"]
+    timed_cells = int(timed.sum()) * R * C
+    resent = int((timed[None, None] & slot["retry_del"]).sum())
+    armed = int(slot["o_newly"].sum()) * NR
+    # The choose pass reads a row's cells up to its first vote.
+    hit = (slot["o_p2b"] <= 0).to(torch.int32)
+    p2b_read = int(((hit.cumsum(1) - hit) == 0).sum())
+    proposed = slot["status"] == PROPOSED
+    quorum = hit.amax(1).bool().all(0)
+    o_proposed = slot["o_status"] == PROPOSED
+    due = o_proposed & ((args[14] - slot["ls"]) >= retry_timeout)
+    passes["vote"] -= (cells - voted) + (cells - delivered) * 4
+    passes["counts"] -= cells - voted
+    passes["choose"] -= (cells - p2b_read) * 2 + slots - int((proposed & quorum).sum())
+    passes["replica"] -= (rep_cells - armed) * 4
+    passes["retry"] -= ((cells - timed_cells) + (cells - resent) * 4
+                        + slots - int(due.sum()))
+    return passes
+
+
 def _unfused_outputs(passes: dict) -> tuple:
     """The ten outputs of the grid vote, out of the passes' outputs."""
     (_, vote, counts, choose, replica, retry) = (
@@ -359,8 +407,9 @@ def _prepare_grid_vote(
     input and output tensors by pointer slot, the launch's integer
     arguments ``(R, C, NR, G, W, t, retry_timeout, gpb, route code)`` and
     the route. ``fused``: the fused kernel takes :func:`grid_vote_route`;
-    the six passes' replica pass runs a thread a slot, as the scalar
-    route does. ``block``: groups per CTA (0: the route's default)."""
+    for the six passes the route is their replica pass's
+    (:func:`unfused_routes`), and gpb that pass's groups per CTA.
+    ``block``: groups per CTA (0: the route's default)."""
     R, C, G, W = p2a.shape
     NR = rep_arrival.shape[0]
     ins = dict(
@@ -373,7 +422,8 @@ def _prepare_grid_vote(
     t = int(t)
     if not -(2**31) <= t < 2**31:
         raise ValueError(f"{plane}: tick {t} outside int32")
-    route = grid_vote_route(*ins.values(), block=block) if fused else "scalar"
+    route = (grid_vote_route(*ins.values(), block=block) if fused
+             else unfused_routes(*ins.values(), block=block)["replica"])
     gpb = _groups_per_cta(route, W, block)
 
     def empty(shape, dtype):
@@ -442,6 +492,46 @@ def grid_vote_route(*args, block: int = 0) -> str:
     if W <= 1024 and 4 * NR * _groups_per_cta("scalar", W, block) <= 48 * 1024:
         return "scalar"
     return "general"
+
+
+def unfused_routes(*args, block: int = 0) -> dict:
+    """The six-pass kernel's route for each pass, for the plane's tensors
+    (the arguments of :func:`unfused_grid_vote`); the one place that
+    decides them:
+
+    * the elementwise passes (age, vote, counts, choose) and retry:
+      "vector" (8 slots a thread, a flat grid over G * W / 8 threads) when
+      G * W % 8 == 0 and every tensor is 16-byte aligned, else "scalar" (a
+      thread a slot);
+    * the replica pass: "vector" (W / 8 threads a group) when W % 8 == 0,
+      W <= 1024, every tensor is aligned and the CTA's per-replica gap
+      table fits in 48 KB; else "scalar" (W threads a group) for W <= 1024
+      when its table fits; else "general" (a CTA per group, any W).
+
+    The kernel's launcher checks each route again and refuses it if its
+    conditions do not hold."""
+    _, _, G, W = args[0].shape
+    NR = args[2].shape[0]
+    aligned = registry.aligned16(args)
+    flat = "vector" if (G * W) % 8 == 0 and aligned else "scalar"
+
+    def fits(route: str) -> bool:
+        return 4 * NR * _groups_per_cta(route, W, block) <= 48 * 1024
+
+    if W % 8 == 0 and W <= 1024 and aligned and fits("vector"):
+        replica = "vector"
+    elif W <= 1024 and fits("scalar"):
+        replica = "scalar"
+    else:
+        replica = "general"
+    return {name: replica if name == "replica" else flat
+            for name in UNFUSED_PASSES}
+
+
+def routes_label(routes: dict) -> str:
+    """The six passes' routes as one ROUTE_LAUNCHES key: the distinct
+    routes in pass order, joined by "+" ("vector" when all six take it)."""
+    return "+".join(dict.fromkeys(routes.values()))
 
 
 def _launch_error(plane: str, lib, err: int, what: str = "kernel") -> None:
@@ -541,7 +631,11 @@ def prepared_unfused_launch(*args, block: int = 0, retry_timeout: int) -> tuple:
     """:func:`prepared_launch` for :func:`unfused_grid_vote`: returns
     ``(launch, outputs, passes)``. Each ``launch()`` runs the six passes
     once, in order on the current stream, into the same tensors, checks
-    each launch, and counts one launch of the six-pass kernel.
+    each launch, and counts one launch of the six-pass kernel (and one
+    under :func:`routes_label` of the passes' routes). ``launch.routes``
+    holds each pass's route (:func:`unfused_routes`), ``launch.passes``
+    a function a pass that launches that pass alone (for timing; not
+    counted), ``launch.packed`` the launch's pointers and integers.
     ``passes`` holds each pass's output tensors by pass name (the aged
     planes and the outputs, the layout of
     :func:`reference_unfused_passes`)."""
@@ -551,22 +645,38 @@ def prepared_unfused_launch(*args, block: int = 0, retry_timeout: int) -> tuple:
         UNFUSED_PLANE, *args, block=block, retry_timeout=retry_timeout,
         fused=False,
     )
+    routes = unfused_routes(*ins.values(), block=block)
+    label = routes_label(routes)
     aged = {f"a_{k}": torch.empty_like(ins[k]) for k in ("p2a", "p2b", "rep")}
     tensors = {**ins, **aged, **outs}
     ptrs = (ctypes.c_void_p * len(_UF_PTR_SLOTS))(
         *[tensors[s].data_ptr() for s in _UF_PTR_SLOTS]
     )
+    # The route codes of the flat passes and of the replica pass follow
+    # the eight integers a build without routes reads.
+    ints = ints[:8] + tuple(
+        registry.ROUTES.index(routes[name]) for name in ("age", "replica"))
     ints = (ctypes.c_int * len(ints))(*ints)
     device = ins["p2a"].device
 
-    def launch() -> None:
+    def run(which: int) -> None:
         lib = _build.kernel_lib("fpx_czu", len(_UF_PTR_SLOTS))
         stream = torch.cuda.current_stream(device).cuda_stream
-        for which, name in enumerate(UNFUSED_PASSES):
-            err = lib.fpx_czu_launch(which, ptrs, ints, stream)
-            _launch_error(UNFUSED_PLANE, lib, err, f"{name} pass")
-        registry.count_launch(UNFUSED_PLANE)
+        err = lib.fpx_czu_launch(which, ptrs, ints, stream)
+        _launch_error(UNFUSED_PLANE, lib, err, f"{UNFUSED_PASSES[which]} pass")
 
+    def launch() -> None:
+        for which in range(len(UNFUSED_PASSES)):
+            run(which)
+        registry.count_launch(UNFUSED_PLANE, label)
+
+    launch.routes = routes
+    launch.route = label
+    launch.packed = (ptrs, ints)
+    # The aged planes live as long as the launch that holds their pointers.
+    launch.tensors = tensors
+    launch.passes = {name: (lambda which=which: run(which))
+                     for which, name in enumerate(UNFUSED_PASSES)}
     passes = {
         name: tuple(tensors[k] for k in written)
         for name, (_, written) in UNFUSED_PASS_IO.items()

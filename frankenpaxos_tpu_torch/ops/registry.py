@@ -20,8 +20,9 @@ two per-plane kernels instead of the whole-tick kernel.
 
 Every wrapper adds one to ``LAUNCHES[plane]`` where it launches its
 kernel, and nowhere else; a kernel with more than one route (the
-phase-1, grid-vote, horizontal vote, CRAQ chain, Mencius vote and Fast
-MultiPaxos vote kernels: vector, scalar, general) also adds one to
+phase-1, grid-vote, horizontal vote, CRAQ chain, Mencius vote, Fast
+MultiPaxos vote and Scalog cut-commit kernels and the six-pass grid vote:
+vector, scalar, general, cluster) also adds one to
 ``ROUTE_LAUNCHES[plane][route]``. ``reset_launches`` zeroes the counts. The
 JAX package's autotune table, ``shard_lowering`` and cost-model hooks
 have no counterpart yet.
@@ -94,9 +95,9 @@ LAUNCHES: Dict[str, int] = {}
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {}
 # Those kernels' routes, in the order of their launchers' route codes
 # (the `Route` enums of csrc/multipaxos.cu, horizontal.cu, craq.cu,
-# mencius.cu and fastmultipaxos.cu; csrc/compartmentalized.cu
-# fpx_cz_launch).
-ROUTES = ("scalar", "general", "vector")
+# mencius.cu, fastmultipaxos.cu and scalog.cu; csrc/compartmentalized.cu
+# fpx_cz_launch and fpx_czu_launch).
+ROUTES = ("scalar", "general", "vector", "cluster")
 
 
 def register(plane: Plane) -> Plane:

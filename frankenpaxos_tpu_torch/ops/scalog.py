@@ -22,9 +22,14 @@ the JAX reference twin, with its outputs and dtypes. The wrapper runs it
 when its tensors lie on the CPU and launches the kernel when they lie on
 the card; it never falls back from the card to the plain version.
 
-Bound: bytes. The kernel reads the ring rows of the committing cuts only,
-plus ``last_committed_cut``, and writes the new cut: under 1 MB even at
-10,000 shards, so it sits at launch latency.
+Bound: bytes. The function needs the ring rows of the committing cuts
+only, plus ``last_committed_cut``, and writes the new cut: under 1 MB even
+at 10,000 shards, so it sits at launch latency. The kernel has two routes,
+chosen by :func:`scalog_cut_commit_route`: the cluster route (one launch of
+one thread-block cluster, every load in one trip, no memset), which the
+main path takes, and the general route (a memset of ``recs``, then a grid
+over shards), which a pipeline deeper than 16 cuts or more shards than
+the cluster beat it at take.
 """
 
 from __future__ import annotations
@@ -99,6 +104,16 @@ def reference_scalog_cut_commit(
     )
 
 
+def scalog_cut_commit_needed_bytes(*args) -> int:
+    """The bytes :func:`reference_scalog_cut_commit` must move on these
+    inputs (its arguments, ``t`` last): ``last_committed_cut`` in and
+    ``new_cut`` out (8 B a shard), the committing cuts' rows (4 B a shard
+    each), about 30 B a ring slot and the two counters."""
+    P, S = args[0].shape
+    n_commit = int(reference_scalog_cut_commit(*args)[1].sum())
+    return S * 8 + n_commit * S * 4 + P * 30 + 8
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
@@ -118,13 +133,52 @@ _IN_SPECS = {  # slot: (shape kind, dtype)
 }
 
 
+# Cuts in flight that the cluster route's threads hold in registers:
+# kClusterMaxP of csrc/scalog.cu, whose launcher refuses the route past it.
+CLUSTER_MAX_P = 16
+# The most shards the wrapper gives the cluster route: where it last beat
+# the general route (cold, NVIDIA H100 80GB HBM3 at 700 W,
+# harness/chain_race.py; PERF.md): at (P, S) = (8, 12000) and (16, 8192),
+# not at (8, 16384), nor at 32 cuts (2,500 and 4,096 shards).
+CLUSTER_ROUTE_MAX_SHARDS = 12000
+
+
+def cluster_max_shards(P: int) -> int:
+    """The most shards the cluster route can take with ``P`` cuts in
+    flight, 0 for a ``P`` it cannot take: one trip of the whole cluster (8
+    CTAs of 1024 or 512 threads for P up to 8 or 16, 2 shards a thread).
+    It mirrors csrc/scalog.cu ``fpx_scalog_cluster_max_shards``, because
+    the route is chosen without a card; ``chip_smoke.py`` holds the two
+    against each other for every P."""
+    if not 1 <= P <= CLUSTER_MAX_P:
+        return 0
+    return 8 * (1024 if P <= 8 else 512) * 2
+
+
+def scalog_cut_commit_route(cut_vec, *args) -> str:
+    """The cut-commit kernel's route for the plane's tensors (the
+    arguments of :func:`fused_scalog_cut_commit`, ``t`` left out); the one
+    place that decides it: "cluster" (one launch, every load in one trip)
+    when the cluster can take the shape (:func:`cluster_max_shards`) and
+    at most :data:`CLUSTER_ROUTE_MAX_SHARDS` shards, else "general" (a
+    memset and a grid over shards, the ring walk in shared memory), which
+    spreads a wider ring over every SM. The kernel's launcher refuses the
+    cluster route where the cluster cannot take the shape."""
+    P, S = cut_vec.shape
+    if P <= CLUSTER_MAX_P and S <= min(cluster_max_shards(P),
+                                       CLUSTER_ROUTE_MAX_SHARDS):
+        return "cluster"
+    return "general"
+
+
 def _scalog_cut_commit_kernel(
     cut_vec, cut_commit_tick, cut_snap_tick, cut_prev_snap,
     last_committed_cut, committed_cuts, next_cut, t, block: int = 0,
 ):
     """Check the tensors, allocate the outputs and pack the launch;
     returns ``(launch, outputs)``. The launch loads the CUDA library, so
-    the checks run without a card."""
+    the checks run without a card. ``block``: threads a CTA of the
+    general route (0: 256); the cluster route sizes its own."""
     from frankenpaxos_tpu_torch.ops import _build
 
     P, S = cut_vec.shape
@@ -164,10 +218,11 @@ def _scalog_cut_commit_kernel(
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
+    route = scalog_cut_commit_route(cut_vec)
     outs = dict(
         o_cut=empty((S,), torch.int32),
         o_committed=empty((P,), torch.bool),
-        o_recs=empty((P,), torch.int32),  # zeroed by the launch
+        o_recs=empty((P,), torch.int32),  # written once a launch
         o_lag=empty((P,), torch.int32),
         o_slotc=empty((P,), torch.bool),
         o_commit=empty((P,), torch.int32),
@@ -177,30 +232,31 @@ def _scalog_cut_commit_kernel(
     ptrs = (ctypes.c_void_p * len(_PTR_SLOTS))(
         *[tensors[s].data_ptr() for s in _PTR_SLOTS]
     )
-    ints = (ctypes.c_int * 4)(P, S, t, threads)
+    # The general route's threads come before the route code, so a build
+    # that knows only the general route reads the same list.
+    ints = (ctypes.c_int * 5)(P, S, t, threads, registry.ROUTES.index(route))
 
-    def launch() -> None:
+    def call(entry: str, what: str) -> None:
         lib = _build.kernel_lib("fpx_scalog", len(_PTR_SLOTS))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fpx_scalog_launch(ptrs, ints, stream)
+        err = getattr(lib, entry)(ptrs, ints, stream)
         if err != 0:
             raise RuntimeError(
-                f"{_PLANE}: kernel launch failed: "
+                f"{_PLANE}: {what} launch failed: "
                 f"{lib.fpx_error_string(err).decode()} (cuda error {err})"
             )
-        registry.count_launch(_PLANE)
 
-    def floor() -> None:
-        # The launch's floor: its memset and grid with a kernel that does
-        # nothing (csrc/scalog.cu fpx_scalog_floor_launch); not a launch
-        # of the kernel, so not counted.
-        lib = _build.kernel_lib("fpx_scalog", len(_PTR_SLOTS))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fpx_scalog_floor_launch(ptrs, ints, stream)
-        if err != 0:
-            raise RuntimeError(f"{_PLANE}: floor launch failed (cuda error {err})")
+    def launch() -> None:
+        call("fpx_scalog_launch", "kernel")
+        registry.count_launch(_PLANE, route)
 
-    launch.floor = floor
+    # The launch floors (csrc/scalog.cu), not launches of the kernel, so
+    # not counted: the general route's memset and grid with a kernel that
+    # does nothing, and the route's own launch shape with one (no memset).
+    launch.floor = lambda: call("fpx_scalog_floor_launch", "floor")
+    launch.floor_one = lambda: call("fpx_scalog_one_floor_launch", "one-launch floor")
+    launch.route = route
+    launch.packed = (ptrs, ints)
     order = ("o_cut", "o_committed", "o_recs", "o_lag", "o_slotc",
              "o_commit", "o_snap")
     return launch, tuple(outs[k] for k in order)
@@ -214,7 +270,7 @@ def fused_scalog_cut_commit(
     (the plain version on the CPU). Replaces the Pallas
     ``fused_scalog_cut_commit`` (frankenpaxos_tpu/ops/scalog.py:184).
     Bit-exact: the per-cut record counts add in wrapping int32 (integer
-    atomics, whose sum does not depend on their order), the snapshot wait
+    adds, whose sum does not depend on their order), the snapshot wait
     is a floor division."""
     args = (
         cut_vec, cut_commit_tick, cut_snap_tick, cut_prev_snap,
@@ -232,8 +288,10 @@ def prepared_launch(*args, **statics) -> tuple:
     ``args`` (the wrapper's arguments), allocates the outputs and returns
     ``(launch, outputs)``; each ``launch()`` runs the kernel once into
     those outputs (and counts as a launch). ``launch.floor()`` runs the
-    launch's floor on the same arguments: its memset and grid with a
-    kernel that does nothing (not counted). On CPU tensors it runs the
+    general route's floor on the same arguments (its memset and grid with
+    a kernel that does nothing), ``launch.floor_one()`` the route's own
+    launch shape with a kernel that does nothing and no memset (neither
+    counted); ``launch.route`` is the route. On CPU tensors it runs the
     wrapper's checks alone: only the launch needs the card."""
     return _scalog_cut_commit_kernel(*args, **statics)
 

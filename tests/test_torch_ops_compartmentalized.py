@@ -261,3 +261,75 @@ def test_grid_vote_route(shape, skew, route):
     assert tcz.grid_vote_route(*args) == route
     launch, _ = tcz.prepared_launch(*args, retry_timeout=8)
     assert launch.route == route
+
+
+@pytest.mark.parametrize("shape,skew,flat,replica", [
+    ((2, 2, 3, 25000, 32), None, "vector", "vector"),  # the main shape
+    ((2, 2, 3, 25000, 32), 0, "scalar", "scalar"),  # p2a one element off
+    ((2, 2, 3, 25000, 32), 3, "scalar", "scalar"),  # status one byte off
+    ((2, 2, 3, 25000, 32), 13, "scalar", "scalar"),  # rep_lat one element off
+    ((2, 3, 2, 7, 16), None, "vector", "vector"),  # six cells: two trips of rows
+    ((3, 2, 3, 64, 64), None, "vector", "vector"),
+    ((2, 2, 5, 9, 24), None, "vector", "vector"),  # W / 8 = 3: no shuffle
+    ((2, 3, 2, 7, 12), None, "scalar", "scalar"),  # G * W % 8 != 0
+    ((2, 2, 3, 2000, 12), None, "vector", "scalar"),  # W % 8 != 0
+    ((2, 2, 3, 4, 1024), None, "vector", "vector"),
+    ((2, 2, 3, 2, 2048), None, "vector", "general"),  # W > 1024
+    ((2, 2, 3, 2, 2048), 0, "scalar", "general"),
+    ((2, 3, 2, 1, 1030), None, "scalar", "general"),
+])
+def test_unfused_routes(shape, skew, flat, replica):
+    """Each pass's route, from G * W, W and the planes' 16-byte alignment;
+    prepared_unfused_launch on CPU tensors takes them and packs the eight
+    integers of a build without routes, then the two route codes (the
+    replica pass's groups per CTA for its route)."""
+    args = list(_grid_tensors(*shape))
+    if skew is not None:
+        flat_buf = torch.empty(args[skew].numel() + 1, dtype=args[skew].dtype)
+        args[skew] = flat_buf[1:].view(args[skew].shape)
+    routes = tcz.unfused_routes(*args)
+    assert routes == {name: replica if name == "replica" else flat
+                      for name in tcz.UNFUSED_PASSES}
+    launch, _, _ = tcz.prepared_unfused_launch(*args, retry_timeout=8)
+    assert launch.routes == routes
+    assert launch.route == (flat if flat == replica else f"{flat}+{replica}")
+    assert set(launch.passes) == set(tcz.UNFUSED_PASSES)
+    R, C, NR, G, W = shape
+    ints = list(launch.packed[1])
+    assert ints[:7] == [R, C, NR, G, W, 33, 8]
+    assert ints[7] == tcz._groups_per_cta(replica, W, 0)
+    assert ints[8:] == [registry.ROUTES.index(flat), registry.ROUTES.index(replica)]
+    if replica == "vector":
+        assert W // 8 * ints[7] <= 256
+
+
+@pytest.mark.parametrize("shape", UNFUSED_SHAPES + [(2, 2, 3, 25, 32)])
+def test_unfused_needed_bytes(shape):
+    """Each pass's needed bytes: what it reads and writes, less the masks
+    and latencies it skips, counted here cell by cell from the plain
+    passes."""
+    args = registry.to_torch(_args(shape), "cpu")
+    got = tcz.unfused_needed_bytes(*args, retry_timeout=8)
+    R, C, NR, G, W = shape
+    plain = tcz.reference_unfused_passes(*args, retry_timeout=8)
+    p2a, p2b_del, retry_del = plain["age"][0], args[9], args[10]
+    voted = p2a == 0
+    delivered = voted & p2b_del
+    timed = plain["retry"][2]
+    cells, slots = R * C * G * W, G * W
+    # age: three int16 planes in, three out.
+    assert got["age"] == 2 * 2 * (2 * cells + NR * slots)
+    # vote: two aged planes and o_p2b (2 B a cell), p2b_del where voting,
+    # p2b_lat where delivered.
+    assert got["vote"] == 6 * cells + int(voted.sum()) + 4 * int(delivered.sum())
+    assert got["counts"] == 2 * cells + int(voted.sum()) + 8 * slots
+    replica = got["replica"]
+    armed = int(plain["choose"][1].sum()) * NR
+    assert replica == (4 * NR * slots + 2 * slots + 4 * NR * G * 2 + 8 * G
+                       + 4 * armed)
+    resent = int((timed[None, None] & retry_del).sum())
+    due = (plain["choose"][0] == tcz.PROPOSED) & ((33 - args[4]) >= 8)
+    assert got["retry"] == (4 * cells + 1 * slots + 4 * slots + int(due.sum())
+                            + int(timed.sum()) * R * C + 4 * resent
+                            + 4 * slots + slots)
+    assert 0 < got["choose"] <= 2 * cells + 3 * slots + 2 * slots

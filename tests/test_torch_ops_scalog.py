@@ -126,3 +126,113 @@ def test_kernel_checks_accept_deep_pipelines(shape, case):
     port = tsc.reference_scalog_cut_commit(*torch_args)
     assert [(o.shape, o.dtype) for o in outs] == [(p.shape, p.dtype) for p in port]
     _assert_equal(jsc.reference_scalog_cut_commit(*_jax_args(args)), port)
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((8, 10000), "cluster"),  # the main shapes
+    ((8, 256), "cluster"),
+    ((8, 16384), "general"),  # one trip of the cluster (8 x 1024 x 2), but
+    ((8, 12001), "general"),  # past the last shards it won at
+    ((8, 100000), "general"),  # 10x
+    ((2, 5), "cluster"),
+    ((16, 8192), "cluster"),  # one trip of the cluster: 8 x 512 x 2
+    ((16, 8193), "general"),
+    ((32, 2500), "general"),  # more cuts than a cluster thread holds
+    ((17, 0), "general"),
+    ((33, 64), "general"),
+    ((40, 10000), "general"),  # the repaired wide pipeline
+    ((8, 12000), "cluster"),
+    ((16, 0), "cluster"),
+])
+def test_scalog_cut_commit_route(shape, route):
+    """The route the wrapper asks the kernel for, from P and S;
+    prepared_launch on CPU tensors takes it and packs {P, S, t, threads of
+    the general route, route code}."""
+    args = registry.to_torch(_args(shape), "cpu")
+    assert tsc.scalog_cut_commit_route(*args[:-1]) == route
+    launch, _ = tsc.prepared_launch(*args)
+    assert launch.route == route
+    P, S = shape
+    assert list(launch.packed[1]) == [P, S, args[-1], 256,
+                                      registry.ROUTES.index(route)]
+    launch, _ = tsc.prepared_launch(*args, block=64)
+    assert list(launch.packed[1])[3] == 64
+
+
+@pytest.mark.parametrize("P", [1, 8, 9, 16, 17, 32, 40])
+def test_cluster_max_shards(P):
+    """One trip of the cluster, as csrc/scalog.cu's launcher takes it:
+    8 CTAs of 1024 threads up to 8 cuts, of 512 up to 16, 2 shards a
+    thread; no shards past 16 cuts."""
+    want = {1: 16384, 8: 16384, 9: 8192, 16: 8192}.get(P, 0)
+    assert tsc.cluster_max_shards(P) == want
+
+
+def test_needed_bytes_counts_the_committing_rows():
+    """The bound's bytes: 8 a shard, 4 a shard for each committing cut,
+    30 a ring slot and the two counters."""
+    for case, n in (("none_live", 0), ("all_committed", 8), ("gap", 4)):
+        args = registry.to_torch(_args((8, 100), case), "cpu")
+        assert int(tsc.reference_scalog_cut_commit(*args)[1].sum()) == n
+        assert tsc.scalog_cut_commit_needed_bytes(*args) == (
+            100 * 8 + n * 100 * 4 + 8 * 30 + 8)
+
+
+INT32_MAX = 2**31 - 1
+
+
+def _cluster_model(cut_vec, commit, snap, prev, last, cc, nc, t):
+    """The cluster route's arithmetic in numpy, as csrc/scalog.cu
+    scalog_one_kernel runs it: the ballot over issue order with each
+    slot's tick fetched from its ring lane; each ring row's sum over
+    shards and last_committed_cut's, every add wrapping in int32; the
+    record count of issue order i as the difference of its row's sum and
+    its predecessor's (the deltas telescope); the newest committed row as
+    the new cut; slot j's owner (j - committed_cuts) mod P, or past
+    INT_MAX the last issue order that lives there."""
+    P, S = cut_vec.shape
+    w = lambda x: np.asarray(x, np.int64).astype(np.uint32).astype(np.int32)  # noqa: E731
+    cc, nc = int(cc), int(nc)
+    lane = np.arange(P)
+    idx = w(cc + lane)
+    my_slot = np.mod(idx.astype(np.int64), P)
+    ok = (idx < nc) & (commit[my_slot] <= t)
+    n = int(np.argmin(np.append(ok, False)))  # the committed prefix
+    sums = cut_vec.astype(np.int64).sum(axis=1)
+    sum_last = int(last.astype(np.int64).sum())
+    before = np.array([sum_last] + [sums[my_slot[i - 1]] for i in range(1, P)])
+    recs = np.where(lane < n, sums[my_slot] - before, 0)
+    cut = cut_vec[my_slot[n - 1]] if n > 0 else last
+    if cc <= INT32_MAX - (P - 1):
+        owner = (lane - cc % P) % P
+    else:
+        owner = np.array([max([k for k in range(P) if my_slot[k] == j], default=-1)
+                          for j in range(P)])
+    committed = lane < n
+    s_i, p_i = snap[my_slot].astype(np.int64), prev[my_slot].astype(np.int64)
+    lag = np.where(committed, (t - s_i) + np.floor_divide(s_i - p_i + 1, 2), 0)
+    sc = (owner >= 0) & (owner < n)
+    inf = tsc.INF
+    return (w(cut), committed, w(recs), w(lag), sc,
+            np.where(sc, inf, commit).astype(np.int32),
+            np.where(sc, inf, snap).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", [(8, 33), (2, 5), (16, 17), (5, 9)])
+def test_cluster_route_model_matches_plain_version(shape, case):
+    """The numpy model of the cluster route equals the plain version on
+    every edge case, and where committed_cuts + P - 1 passes INT_MAX."""
+    for seed in range(3):
+        args = _args(shape, case, seed)
+        got = _cluster_model(*args)
+        want = tsc.reference_scalog_cut_commit(*registry.to_torch(args, "cpu"))
+        for name, g, w in zip(tsc.SCALOG_CUT_COMMIT_OUTS, got, want):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    for nc in (INT32_MAX, -(2**31) + 3, INT32_MAX - 7):
+        args = list(_args(shape, "all_committed"))
+        args[5], args[6] = np.array(INT32_MAX - 3, np.int32), np.array(nc, np.int32)
+        got = _cluster_model(*args)
+        want = tsc.reference_scalog_cut_commit(*registry.to_torch(args, "cpu"))
+        for name, g, w in zip(tsc.SCALOG_CUT_COMMIT_OUTS, got, want):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=f"{name} next_cut={nc}")
